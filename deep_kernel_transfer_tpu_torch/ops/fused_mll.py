@@ -1,0 +1,141 @@
+"""Fused one-vs-rest linear-kernel GP MLL: Gram + scale + noise + Cholesky +
+solves + MLL for every (episode, way) in one CUDA kernel.
+
+Port of deep_kernel_transfer_tpu/ops/pallas/fused_mll.py. The forward runs
+in `csrc/fused_mll.cu` for CUDA tensors and in `_forward_plain` (torch ops)
+for CPU tensors; the backward is the closed-form MLL gradient of the JAX
+package's `_vjp_bwd` (fused_mll.py:229-253), as torch ops in f32:
+
+    d mll / dK = 0.5/N (alpha alpha^T - K^-1),   d mll / d diff = -alpha/N
+
+Unlike the TPU kernel, nothing is padded to 128: L and alpha are stored at
+their real size N.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..gp.kernels import dot_f32, full_f32
+from . import build
+
+_LOG_2PI = 1.8378770664093453
+MAX_N = 128  # one CTA holds the whole N x N matrix in shared memory
+
+
+def supports(kernel_type: str, n: int) -> bool:
+    """Whether the fused kernel applies (linear family, one tile)."""
+    return kernel_type.lower() in ("cossim", "bncossim", "linear") and n <= MAX_N
+
+
+def _forward_plain(z, diffs, scales, noise, jitter):
+    """(mll [B, W], L [B, W, N, N], alpha [B, W, N]) with torch ops."""
+    n = z.shape[1]
+    gram = dot_f32(z, z)
+    eye = torch.eye(n, dtype=z.dtype, device=z.device)
+    k = scales[None, :, None, None] * gram[:, None] + (noise + jitter) * eye
+    chol = torch.linalg.cholesky(k)
+    y = torch.linalg.solve_triangular(
+        chol, diffs[None, :, :, None].expand(z.shape[0], -1, -1, -1),
+        upper=False)
+    alpha = torch.linalg.solve_triangular(chol.transpose(-1, -2), y,
+                                          upper=True)[..., 0]
+    quad = torch.sum(y[..., 0] ** 2, dim=-1)
+    logdet = 2.0 * torch.sum(
+        torch.log(torch.diagonal(chol, dim1=-2, dim2=-1)), dim=-1)
+    mll = -0.5 * (quad + logdet + n * _LOG_2PI) / n
+    return mll, chol, alpha
+
+
+def fused_linear_mll_plain(z, diffs, scales, n_real: int, noise: float,
+                           jitter: float = 1e-6):
+    """The kernel's function in plain differentiable torch ops: [B, W]."""
+    _check(z, diffs, scales, n_real)
+    return _forward_plain(z, diffs, scales, noise, jitter)[0]
+
+
+def _check(z, diffs, scales, n_real):
+    if z.dim() != 3 or diffs.dim() != 2 or scales.dim() != 1:
+        raise ValueError(f"want z [B, N, D], diffs [W, N], scales [W]; got "
+                         f"{tuple(z.shape)}, {tuple(diffs.shape)}, "
+                         f"{tuple(scales.shape)}")
+    b, n, _ = z.shape
+    if n != n_real or diffs.shape != (scales.shape[0], n):
+        raise ValueError(f"n_real={n_real}, z {tuple(z.shape)}, diffs "
+                         f"{tuple(diffs.shape)}, scales {tuple(scales.shape)}")
+    if not (z.device == diffs.device == scales.device):
+        raise ValueError("z, diffs and scales must be on one device")
+
+
+def _forward_cuda(z, diffs, scales, noise, jitter):
+    for name, t in (("z", z), ("diffs", diffs), ("scales", scales)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"fused_linear_mll kernel takes float32, got "
+                            f"{name} {t.dtype}")
+    b, n, d = z.shape
+    w = diffs.shape[0]
+    if n > MAX_N:
+        raise ValueError(f"fused_linear_mll kernel takes N <= {MAX_N}, got {n}")
+    z, diffs, scales = z.contiguous(), diffs.contiguous(), scales.contiguous()
+    mll = torch.empty((b, w), dtype=torch.float32, device=z.device)
+    chol = torch.empty((b, w, n, n), dtype=torch.float32, device=z.device)
+    alpha = torch.empty((b, w, n), dtype=torch.float32, device=z.device)
+    lib = build.load("fused_mll")
+    fn = lib.fused_mll_forward
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
+        ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(z.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(z.data_ptr(), diffs.data_ptr(), scales.data_ptr(),
+                 mll.data_ptr(), chol.data_ptr(), alpha.data_ptr(),
+                 b, n, d, w, float(noise + jitter), stream)
+    if err != 0:
+        raise RuntimeError(f"fused_mll_forward launch failed: CUDA error {err}")
+    fused_linear_mll.launches += 1
+    return mll, chol, alpha
+
+
+class _FusedLinearMLL(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, z, diffs, scales, noise, jitter):
+        fwd = _forward_cuda if z.is_cuda else _forward_plain
+        mll, chol, alpha = fwd(z, diffs, scales, noise, jitter)
+        ctx.save_for_backward(z, scales, chol, alpha)
+        return mll
+
+    @staticmethod
+    @full_f32()
+    def backward(ctx, g):
+        z, scales, chol, alpha = ctx.saved_tensors
+        n = z.shape[1]
+        eye = torch.eye(n, dtype=z.dtype, device=z.device)
+        linv = torch.linalg.solve_triangular(chol, eye.expand_as(chol),
+                                             upper=False)
+        kinv = linv.transpose(-1, -2) @ linv  # K^-1 = L^-T L^-1
+        dk = (0.5 / n) * (alpha[..., :, None] * alpha[..., None, :] - kinv)
+        dk = dk * g[:, :, None, None]
+        # K_w = s_w Z Z^T + noise I
+        m = torch.einsum("bwij,w->bij", dk + dk.transpose(-1, -2), scales)
+        dz = m @ z
+        gram = z @ z.transpose(-1, -2)
+        dscales = torch.einsum("bwij,bij->w", dk, gram)
+        ddiffs = -torch.einsum("bw,bwi->wi", g, alpha) / n
+        return dz, ddiffs, dscales, None, None
+
+
+def fused_linear_mll(z, diffs, scales, n_real: int, noise: float,
+                     jitter: float = 1e-6):
+    """Batched one-vs-rest linear-kernel MLLs: [B, W].
+
+    z [B, N, D] features, diffs [W, N] = targets - mean, scales [W]
+    positive outputscales; K_w = s_w Z Z^T + (noise + jitter) I. Matches
+    ExactGP.mll (with gpytorch's 1/N scaling) for the scale(linear) kernel
+    family. CUDA tensors launch the kernel (float32 only, N <= 128); CPU
+    tensors take the plain torch version."""
+    _check(z, diffs, scales, n_real)
+    return _FusedLinearMLL.apply(z, diffs, scales, float(noise), float(jitter))
+
+
+fused_linear_mll.launches = 0  # kernel launches; the plain path never counts
