@@ -6,12 +6,12 @@
 2. Builds every CUDA kernel of the port from `csrc/` with nvcc.
 3. Holds each kernel against its plain torch version on the card at the
    main path's shapes, and times kernel, plain version and the stock
-   library composite with CUDA events.
+   library composite with CUDA events, in turns.
 4. Drives the main path: DKT meta-training (Conv4, bncossim, 5-way 5-shot
    15-query, 84x84x3 uint8 episodes, 32 episodes a step, bf16 trunk) for a
    few steps through the fused-MLL kernel, checks the losses, the kernel's
    launch count and the fused route against the plain route, runs the
-   eval head, times a train step on both GP routes and prints a
+   eval head, times a train step on both GP routes in turns and prints a
    torch.profiler table of the step's device time by kernel.
 5. Prints one JSON line of kernel results, then as its last line
    {"ok": true, "device": {...}}.
@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -53,6 +54,19 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def ms_in_turns(fns: dict, rounds: int = 5, iters: int = 20) -> dict:
+    """name -> (median, min, max) ms per call over `rounds` timings of each
+    fn, taken in turns (a, b, c, c, b, a, ...) so that a drift of clocks or
+    power between them falls on every fn alike."""
+    samples = {name: [] for name in fns}
+    order = list(fns)
+    for r in range(rounds):
+        for name in order if r % 2 == 0 else order[::-1]:
+            samples[name].append(cuda_ms(fns[name], iters))
+    return {name: (statistics.median(v), min(v), max(v))
+            for name, v in samples.items()}
 
 
 def rel_err(a, b) -> float:
@@ -151,10 +165,13 @@ def check_fused_mll(device) -> dict:
         if not (fwd_err < 1e-5 and max(grad_errs) < 2e-2):
             raise AssertionError(f"fused_mll disagrees with plain at N={n}")
         if n == 100:
-            ms = cuda_ms(lambda: fused_linear_mll(z, diffs, scales, n, NOISE))
-            plain_ms = cuda_ms(
-                lambda: fused_linear_mll_plain(z, diffs, scales, n, NOISE))
-            library_ms = cuda_ms(lambda: library_mll(z, diffs, scales, NOISE))
+            times = ms_in_turns({
+                "kernel": lambda: fused_linear_mll(z, diffs, scales, n, NOISE),
+                "plain": lambda: fused_linear_mll_plain(z, diffs, scales, n,
+                                                        NOISE),
+                "library": lambda: library_mll(z, diffs, scales, NOISE)})
+            ms, plain_ms, library_ms = (times[k][0] for k in
+                                        ("kernel", "plain", "library"))
             bound_ms, bound_by = fused_mll_bound_ms(MAIN_B, n, MAIN_D, MAIN_WAY)
             entry = {
                 "name": "fused_linear_mll",
@@ -170,10 +187,11 @@ def check_fused_mll(device) -> dict:
                 "bound_by": bound_by,
                 "library_ms": library_ms,
             }
-            print(f"fused_mll B={MAIN_B} N={n} D={MAIN_D} W={MAIN_WAY}: "
-                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-                  f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                  f"({bound_by})", flush=True)
+            print(f"fused_mll B={MAIN_B} N={n} D={MAIN_D} W={MAIN_WAY}, "
+                  f"median (min-max) of 5 turns: " + ", ".join(
+                      f"{k} {v[0]:.4f} ({v[1]:.4f}-{v[2]:.4f}) ms"
+                      for k, v in times.items())
+                  + f", bound {bound_ms:.4f} ms ({bound_by})", flush=True)
     return entry
 
 
@@ -227,10 +245,13 @@ def drive_main_path(device, card: str) -> dict:
           f"{MAIN_B} episodes (random weights)", flush=True)
 
     torch.cuda.reset_peak_memory_stats()
-    for name, m in (("fused", model), ("plain", plain)):
-        ms = cuda_ms(lambda: m.train_step(batches[0]), iters=10, warmup=2)
-        print(f"train step, {name} route: {ms:.3f} ms, "
-              f"{MAIN_B / ms * 1e3:.1f} episodes/s [{card}]", flush=True)
+    times = ms_in_turns({"fused": lambda: model.train_step(batches[0]),
+                         "plain": lambda: plain.train_step(batches[0])},
+                        rounds=4, iters=5)
+    for name, (ms, lo, hi) in times.items():
+        print(f"train step, {name} route: {ms:.3f} ms (median of 4 turns, "
+              f"{lo:.3f}-{hi:.3f}), {MAIN_B / ms * 1e3:.1f} episodes/s "
+              f"[{card}]", flush=True)
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           f" GiB", flush=True)
     profile_step(lambda: model.train_step(batches[0]))

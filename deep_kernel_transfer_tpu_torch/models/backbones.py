@@ -181,15 +181,11 @@ class ConvNet(nn.Module):
                 m.reset_parameters()
 
     def forward(self, x, train=True, ep_groups=1, stats=None):
-        return run_trunk(self.trunk, x, train, ep_groups, stats)
-
-
-def run_trunk(trunk: nn.ModuleList, x, train=True, ep_groups=1, stats=None):
-    """Preprocess NHWC images, go to NCHW, run every layer of `trunk`."""
-    x = preprocess_input(x).permute(0, 3, 1, 2)
-    for layer in trunk:
-        x = layer(x, train, ep_groups, stats)
-    return x
+        """Preprocess NHWC images, go to NCHW, run every layer of `trunk`."""
+        x = preprocess_input(x).permute(0, 3, 1, 2)
+        for layer in self.trunk:
+            x = layer(x, train, ep_groups, stats)
+        return x
 
 
 def Conv4() -> ConvNet:
