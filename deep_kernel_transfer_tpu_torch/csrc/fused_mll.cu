@@ -14,10 +14,12 @@
 // for the closed-form backward, which runs as torch ops in the wrapper.
 //
 // Bound at the main-path shape (B=32 episodes, N=100, D=1600, W=5) on an
-// H100 SXM: the Gram is 2*B*N*N*D = 1.02 GFLOP of f32 (TF32 is not allowed
-// for a matrix that feeds a Cholesky), 15 us at the 67 TFLOP/s f32 rate; the
-// bytes are 20.5 MB of Z in and 6.4 MB of L out, 8 us at 3.35 TB/s. So the
-// operations bound it, at about 15 us.
+// H100 SXM: G is symmetric and the Cholesky reads only its lower triangle,
+// so the least Gram work is B*N*(N+1)*D = 0.52 GFLOP of f32 (TF32 is not
+// allowed for a matrix that feeds a Cholesky); with the B*W factorisations
+// (N^3/3) and solves that is 0.57 GFLOP, 8.6 us at the 67 TFLOP/s f32 rate.
+// The bytes are 20.5 MB of Z in and 6.4 MB of L out, 8.0 us at 3.35 TB/s.
+// The two terms are almost level; the operations bind, at about 8.6 us.
 //
 // What this first design is bound by instead: the factorisation is a serial
 // chain of N dependent rank-1 steps, one __syncthreads each, and the two

@@ -130,8 +130,6 @@ class ConvBlock(nn.Module):
         self.C = nn.Conv2d(in_dim, out_dim, 3, padding=1)
         self.BN = EpisodicBatchNorm(out_dim)
         self.pool = pool
-        nn.init.zeros_(self.C.bias)
-        conv_fanin_init_(self.C.weight)
 
     def forward(self, x, train=True, ep_groups=1, stats=None):
         x = F.conv2d(x, self.C.weight.to(x.dtype), self.C.bias.to(x.dtype),
@@ -160,6 +158,7 @@ class ConvNet(nn.Module):
         blocks = [ConvBlock(3 if i == 0 else 64, 64, pool=(i < 4))
                   for i in range(depth)]
         self.trunk = nn.ModuleList(blocks + [Flatten()])
+        self.reset_parameters()
 
     def out_chw(self, height: int, width: int) -> tuple[int, int, int]:
         """(C, H, W) of the last block's output for an image of that size."""

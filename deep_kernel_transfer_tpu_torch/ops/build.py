@@ -1,10 +1,9 @@
-"""Build the package's CUDA kernels with nvcc and load them with ctypes.
+"""Build the package's CUDA kernel with nvcc and load it with ctypes.
 
-Each source in `csrc/` compiles on its own into a shared library with a
-plain C interface (`nvcc -shared`, no PyTorch headers, so a build takes
-seconds). Libraries go to `_build/` inside the package, named by a hash of
-their source, so an edited source never loads a stale library. Building
-happens at first use; `build_all` starts one nvcc per source at once.
+`csrc/<name>.cu` compiles into a shared library with a plain C interface
+(`nvcc -shared`, no PyTorch headers, so a build takes seconds). The library
+goes to `_build/` inside the package, named by a hash of its source, so an
+edited source never loads a stale library. Building happens at first use.
 """
 from __future__ import annotations
 
@@ -19,14 +18,9 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 
-# kernel name -> source file in csrc/
-SOURCES = {"fused_mll": "fused_mll.cu"}
-
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# kernel name -> nvcc's output (register and shared-memory report)
-build_logs: dict[str, str] = {}
 _loaded: dict[str, ctypes.CDLL] = {}
 
 
@@ -42,45 +36,34 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / SOURCES[name]).read_bytes()
+    src = (CSRC_DIR / f"{name}.cu").read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 
-def build_all(names=None) -> dict[str, Path]:
-    """Compile every named kernel that is not built yet, all nvcc processes
-    running at once. Returns name -> library path; raises on a failed
-    build with nvcc's output."""
-    names = list(SOURCES) if names is None else list(names)
+def build(name: str) -> tuple[Path, str]:
+    """Compile `csrc/<name>.cu` unless it is built already. Returns the
+    library's path and nvcc's output (its register and shared-memory
+    report; empty when nothing was built); raises on a failed build."""
+    out = library_path(name)
+    if out.exists():
+        return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    paths = {n: library_path(n) for n in names}
-    procs = {}
-    for name, out in paths.items():
-        if out.exists():
-            continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               str(CSRC_DIR / SOURCES[name])]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out)
-    failed = []
-    for name, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
-        build_logs[name] = log
-        if proc.returncode != 0:
-            failed.append(f"{name}:\n{log}")
-            continue
-        os.replace(tmp, out)
-    if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
-    return paths
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                           str(CSRC_DIR / f"{name}.cu")],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}")
+    os.replace(tmp, out)
+    return out, proc.stdout
 
 
 def load(name: str) -> ctypes.CDLL:
     """The kernel's library, built on first use."""
     lib = _loaded.get(name)
     if lib is None:
-        lib = ctypes.CDLL(str(build_all([name])[name]))
+        lib = ctypes.CDLL(str(build(name)[0]))
         _loaded[name] = lib
     return lib
