@@ -5,14 +5,21 @@
 1. Prints the card (name, power limit) and the torch/CUDA versions.
 2. Builds every CUDA kernel of the port from `csrc/` with nvcc.
 3. Holds each kernel against its plain torch version on the card at the
-   main path's shapes, and times kernel, plain version and the stock
-   library composite with CUDA events, in turns.
-4. Drives the main path: DKT meta-training (Conv4, bncossim, 5-way 5-shot
-   15-query, 84x84x3 uint8 episodes, 32 episodes a step, bf16 trunk) for a
-   few steps through the fused-MLL kernel, checks the losses, the kernel's
-   launch count and the fused route against the plain route, runs the
-   eval head, times a train step on both GP routes in turns and prints a
-   torch.profiler table of the step's device time by kernel.
+   main paths' shapes, and times kernel, plain version and the stock
+   library call with CUDA events, in turns: the fused MLL, and the three
+   large-support-set Cholesky kernels (blocked, left-looking, fused Gram
+   with its tiled form).
+4. Drives the main paths, each with the launch counts set to 0 just before
+   and read just after:
+   - DKT meta-training (Conv4, bncossim, 5-way 5-shot 15-query, 84x84x3
+     uint8 episodes, 32 episodes a step, bf16 trunk) for a few steps
+     through the fused-MLL kernel; checks the losses, the kernel's launch
+     count and the fused route against the plain route, runs the eval
+     head, times a train step on both GP routes in turns and prints a
+     torch.profiler table of the step's device time by kernel;
+   - the GP engine's memory regime: Cholesky logdets and their gradients
+     at the JAX benchmark's shapes and the memory demo's fused arm at
+     N = 32768.
 5. Prints one JSON line of kernel results, then as its last line
    {"ok": true, "device": {...}}.
 
@@ -25,7 +32,6 @@ from __future__ import annotations
 import json
 import math
 import statistics
-import subprocess
 import sys
 import time
 
@@ -56,7 +62,8 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def ms_in_turns(fns: dict, rounds: int = 5, iters: int = 20) -> dict:
+def ms_in_turns(fns: dict, rounds: int = 5, iters: int = 20,
+                warmup: int = 3) -> dict:
     """name -> (median, min, max) ms per call over `rounds` timings of each
     fn, taken in turns (a, b, c, c, b, a, ...) so that a drift of clocks or
     power between them falls on every fn alike."""
@@ -64,20 +71,13 @@ def ms_in_turns(fns: dict, rounds: int = 5, iters: int = 20) -> dict:
     order = list(fns)
     for r in range(rounds):
         for name in order if r % 2 == 0 else order[::-1]:
-            samples[name].append(cuda_ms(fns[name], iters))
+            samples[name].append(cuda_ms(fns[name], iters, warmup))
     return {name: (statistics.median(v), min(v), max(v))
             for name, v in samples.items()}
 
 
 def rel_err(a, b) -> float:
     return float((a - b).abs().max() / (b.abs().max() + 1e-8))
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 def mll_inputs(b: int, n: int, d: int, w: int, device):
@@ -109,16 +109,38 @@ def library_mll(z, diffs, scales, noise):
     return -0.5 * (quad + logdet + n * math.log(2 * math.pi)) / n
 
 
-def fused_mll_bound_ms(b: int, n: int, d: int, w: int) -> tuple[float, str]:
-    """Least time on an H100 SXM: the Gram's lower triangle with its
-    diagonal (B·N(N+1)·D; G is symmetric and the Cholesky reads no more)
-    + Cholesky (N³/3) + two solves (2N²) per (episode, way) in f32; Z,
-    diffs, scales read once, mll, L and alpha written once."""
-    flops = 1.0 * b * n * (n + 1) * d + b * w * (n ** 3 / 3.0 + 2.0 * n * n)
-    nbytes = 4.0 * (b * n * d + w * n + w + b * w + b * w * n * n + b * w * n)
+def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
+    """Least time on an H100 SXM for f32 work: max(operations / peak f32
+    rate, bytes / memory rate), and which of the two binds."""
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def fused_mll_bound_ms(b: int, n: int, d: int, w: int) -> tuple[float, str]:
+    """The Gram's lower triangle with its diagonal (B·N(N+1)·D; G is
+    symmetric and the Cholesky reads no more) + Cholesky (N³/3) + two
+    solves (2N²) per (episode, way) in f32; Z, diffs, scales read once,
+    mll, L and alpha written once."""
+    flops = 1.0 * b * n * (n + 1) * d + b * w * (n ** 3 / 3.0 + 2.0 * n * n)
+    nbytes = 4.0 * (b * n * d + w * n + w + b * w + b * w * n * n + b * w * n)
+    return bound_ms(flops, nbytes)
+
+
+def cholesky_bound_ms(b: int, n: int) -> tuple[float, str]:
+    """B·N³/3 f32 operations; K's lower triangle read, dense L written."""
+    return bound_ms(b * n ** 3 / 3.0, 4.0 * (b * n * (n + 1) / 2 + b * n * n))
+
+
+def fused_gram_bound_ms(b: int, n: int, d: int,
+                        tiled: bool = False) -> tuple[float, str]:
+    """The Gram's lower triangle (B·N(N+1)·D) + the factor (B·N³/3); Z
+    read, L written: dense, or only the nt(nt+1)/2 lower tiles when
+    tiled."""
+    nt = n // 128
+    out = nt * (nt + 1) / 2 * 128 * 128 if tiled else n * n
+    return bound_ms(b * (n * (n + 1) * d + n ** 3 / 3.0),
+                    4.0 * (b * n * d + b * out))
 
 
 def check_ragged_shape(device) -> None:
@@ -147,11 +169,8 @@ def check_fused_mll(device) -> dict:
     entry = None
     for n in (85, 100, 128):
         z, diffs, scales = mll_inputs(MAIN_B, n, MAIN_D, MAIN_WAY, device)
-        before = fused_linear_mll.launches
-        got = fused_linear_mll(z, diffs, scales, n, NOISE)
-        torch.cuda.synchronize()
-        if fused_linear_mll.launches != before + 1:
-            raise AssertionError("fused_linear_mll did not launch its kernel")
+        got = launched_once(fused_linear_mll, lambda: fused_linear_mll(
+            z, diffs, scales, n, NOISE))
         want = fused_linear_mll_plain(z, diffs, scales, n, NOISE)
         fwd_err = float((got - want).abs().max())
         grads = []
@@ -171,29 +190,282 @@ def check_fused_mll(device) -> dict:
                 "plain": lambda: fused_linear_mll_plain(z, diffs, scales, n,
                                                         NOISE),
                 "library": lambda: library_mll(z, diffs, scales, NOISE)})
-            ms, plain_ms, library_ms = (times[k][0] for k in
-                                        ("kernel", "plain", "library"))
-            bound_ms, bound_by = fused_mll_bound_ms(MAIN_B, n, MAIN_D, MAIN_WAY)
-            entry = {
-                "name": "fused_linear_mll",
-                "route": "cuda",
-                "source": "deep_kernel_transfer_tpu_torch/csrc/fused_mll.cu",
-                "replaces":
-                    "deep_kernel_transfer_tpu/ops/pallas/fused_mll.py:165",
-                "launches": None,
-                "max_abs_err": fwd_err,
-                "ms": ms,
-                "plain_ms": plain_ms,
-                "bound_ms": bound_ms,
-                "bound_by": bound_by,
-                "library_ms": library_ms,
-            }
-            print(f"fused_mll B={MAIN_B} N={n} D={MAIN_D} W={MAIN_WAY}, "
-                  f"median (min-max) of 5 turns: " + ", ".join(
-                      f"{k} {v[0]:.4f} ({v[1]:.4f}-{v[2]:.4f}) ms"
-                      for k, v in times.items())
-                  + f", bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+            entry = kernel_entry(
+                "fused_linear_mll", "fused_mll.cu",
+                "deep_kernel_transfer_tpu/ops/pallas/fused_mll.py:165",
+                fwd_err, times,
+                fused_mll_bound_ms(MAIN_B, n, MAIN_D, MAIN_WAY),
+                f"B={MAIN_B} N={n} D={MAIN_D} W={MAIN_WAY}")
     return entry
+
+
+def spd_matrix(b: int, n: int, device) -> torch.Tensor:
+    """z z^T + 0.5 I with z [B, N, N/2] (tests/test_pallas_mll.py:88-90)."""
+    z = np.random.RandomState(n).randn(b, n, n // 2).astype(np.float32)
+    z = torch.from_numpy(z).to(device)
+    return z @ z.mT + 0.5 * torch.eye(n, device=device)
+
+
+def unit_rows(b: int, n: int, d: int, device, seed: int = 0) -> torch.Tensor:
+    """Features with unit-norm rows, as bncossim gives and the memory demo
+    uses."""
+    z = np.random.RandomState(seed + n).randn(b, n, d).astype(np.float32)
+    z /= np.linalg.norm(z, axis=-1, keepdims=True)
+    return torch.from_numpy(z).to(device)
+
+
+def logdet_of(chol: torch.Tensor) -> torch.Tensor:
+    return 2.0 * torch.log(torch.diagonal(chol, dim1=-2, dim2=-1)).sum()
+
+
+def grads_of(fn, args) -> tuple:
+    """Gradients of logdet(fn(*args)) in every tensor argument."""
+    args = [a.detach().clone().requires_grad_(True) for a in args]
+    return torch.autograd.grad(logdet_of(fn(*args)), args)
+
+
+def launched_once(counter, fn):
+    """fn() on the card; raises unless `counter` (a wrapper) launched its
+    kernel exactly once."""
+    before = counter.launches
+    out = fn()
+    torch.cuda.synchronize()
+    if counter.launches != before + 1:
+        raise AssertionError(f"{counter.__name__} did not launch its kernel")
+    return out
+
+
+def kernel_entry(name: str, source: str, replaces: str, err: float,
+                 times: dict, bound: tuple[float, str], shape: str) -> dict:
+    print(f"{name} {shape}, median (min-max) of turns: " + ", ".join(
+        f"{k} {v[0]:.4f} ({v[1]:.4f}-{v[2]:.4f}) ms" for k, v in times.items())
+        + f", bound {bound[0]:.4f} ms ({bound[1]})", flush=True)
+    return {"name": name, "route": "cuda",
+            "source": f"deep_kernel_transfer_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": None, "max_abs_err": err,
+            "ms": times["kernel"][0], "plain_ms": times["plain"][0],
+            "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": times["library"][0]}
+
+
+def check(label: str, errs: dict, limits: dict) -> None:
+    print(f"{label}: " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()),
+          flush=True)
+    for k, v in errs.items():
+        if not v < limits[k]:
+            raise AssertionError(f"{label}: {k} {v:.3e} >= {limits[k]}")
+
+
+def check_blocked_cholesky(device) -> dict:
+    """Kernel against plain version, B=8 at N in {128, 256, 512}: factor
+    and reconstruction 1e-5 relative, an exactly zero upper triangle, the
+    logdet gradient 2e-2 relative to stock autograd; N=50 takes the stock
+    Cholesky with no launch. Timed at B=8, N=512."""
+    from deep_kernel_transfer_tpu_torch.ops.blocked_cholesky import (
+        blocked_cholesky, blocked_cholesky_plain)
+
+    limits = {"factor": 1e-5, "reconstruction": 1e-5, "upper": 1e-30,
+              "grad": 2e-2}
+    for n in (128, 256, 512):
+        k = spd_matrix(8, n, device)
+        got = launched_once(blocked_cholesky, lambda: blocked_cholesky(k))
+        want = blocked_cholesky_plain(k)
+        errs = {"factor": rel_err(got, want),
+                "reconstruction": rel_err(got @ got.mT, k),
+                "upper": float(torch.triu(got, 1).abs().max()),
+                "grad": rel_err(grads_of(blocked_cholesky, [k])[0],
+                                grads_of(torch.linalg.cholesky, [k])[0])}
+        check(f"blocked_cholesky B=8 N={n}", errs, limits)
+    fwd_err = float((got - want).abs().max())
+    k50 = spd_matrix(8, 50, device)
+    before = blocked_cholesky.launches
+    err50 = float((blocked_cholesky(k50) - torch.linalg.cholesky(k50)
+                   ).abs().max())
+    torch.cuda.synchronize()
+    print(f"blocked_cholesky N=50: stock route, max abs err {err50:.3e}, "
+          f"launches {blocked_cholesky.launches - before}", flush=True)
+    if blocked_cholesky.launches != before or not err50 < 1e-5:
+        raise AssertionError("blocked_cholesky N=50 must take the stock route")
+    times = ms_in_turns({"kernel": lambda: blocked_cholesky(k),
+                         "plain": lambda: blocked_cholesky_plain(k),
+                         "library": lambda: torch.linalg.cholesky(k)})
+    return kernel_entry(
+        "blocked_cholesky", "blocked_cholesky.cu",
+        "deep_kernel_transfer_tpu/ops/pallas/blocked_cholesky.py:154",
+        fwd_err, times, cholesky_bound_ms(8, 512), "B=8 N=512")
+
+
+def check_hbm_cholesky(device) -> dict:
+    """Kernel against plain version, K = 2 Z Z^T, diag 0.1, B=2 at N in
+    {384, 1024, 2048}: factor 1e-5 relative, gradients in K and diag 2e-2
+    relative to stock autograd. Timed at B=2, N=2048."""
+    from deep_kernel_transfer_tpu_torch.ops.hbm_cholesky import (
+        hbm_blocked_cholesky, hbm_blocked_cholesky_plain)
+
+    def stock(kk, dd):
+        return torch.linalg.cholesky(
+            kk + dd * torch.eye(kk.shape[-1], device=device))
+
+    diag = torch.tensor(0.1, device=device)
+    for n in (384, 1024, 2048):
+        z = unit_rows(2, n, 256, device)
+        k = 2.0 * (z @ z.mT)
+        got = launched_once(hbm_blocked_cholesky,
+                            lambda: hbm_blocked_cholesky(k, 0.1))
+        want = hbm_blocked_cholesky_plain(k, 0.1)
+        g_kernel = grads_of(hbm_blocked_cholesky, [k, diag])
+        g_stock = grads_of(stock, [k, diag])
+        errs = {"factor": rel_err(got, want),
+                "upper": float(torch.triu(got, 1).abs().max()),
+                "grad K": rel_err(g_kernel[0], g_stock[0]),
+                "grad diag": rel_err(g_kernel[1], g_stock[1])}
+        check(f"hbm_blocked_cholesky B=2 N={n}", errs,
+              {"factor": 1e-5, "upper": 1e-30, "grad K": 2e-2,
+               "grad diag": 2e-2})
+    times = ms_in_turns({"kernel": lambda: hbm_blocked_cholesky(k, 0.1),
+                         "plain": lambda: hbm_blocked_cholesky_plain(k, 0.1),
+                         "library": lambda: stock(k, 0.1)})
+    return kernel_entry(
+        "hbm_blocked_cholesky", "hbm_cholesky.cu",
+        "deep_kernel_transfer_tpu/ops/pallas/hbm_cholesky.py:283",
+        float((got - want).abs().max()), times, cholesky_bound_ms(2, 2048),
+        "B=2 N=2048")
+
+
+def library_gram_cholesky(z, scale, diag):
+    """torch.matmul (TF32 off) + in-place diagonal + torch.linalg.cholesky:
+    the yardstick, never used by the port."""
+    k = z @ z.mT
+    k.mul_(scale)
+    k.diagonal(dim1=-2, dim2=-1).add_(diag)
+    return torch.linalg.cholesky(k)
+
+
+def check_fused_gram_cholesky(device) -> dict:
+    """Kernel against plain version, scale 2, diag 0.1, B=2, D=256 at N in
+    {384, 2048}: factor 1e-5 relative, gradients in Z, scale and diag 2e-2
+    relative to stock autograd. Timed at B=2, N=2048, D=256."""
+    from deep_kernel_transfer_tpu_torch.ops.hbm_cholesky import (
+        fused_gram_cholesky, fused_gram_cholesky_plain)
+
+    def stock(zz, s, dd):
+        return torch.linalg.cholesky(
+            s * (zz @ zz.mT) + dd * torch.eye(zz.shape[1], device=device))
+
+    sd = [torch.tensor(2.0, device=device), torch.tensor(0.1, device=device)]
+    for n in (384, 2048):
+        z = unit_rows(2, n, 256, device)
+        got = launched_once(fused_gram_cholesky,
+                            lambda: fused_gram_cholesky(z, 2.0, 0.1))
+        want = fused_gram_cholesky_plain(z, 2.0, 0.1)
+        g_kernel = grads_of(fused_gram_cholesky, [z, *sd])
+        g_stock = grads_of(stock, [z, *sd])
+        errs = {"factor": rel_err(got, want),
+                "upper": float(torch.triu(got, 1).abs().max())}
+        errs.update({f"grad {k}": rel_err(a, b) for k, a, b in zip(
+            ("Z", "scale", "diag"), g_kernel, g_stock)})
+        check(f"fused_gram_cholesky B=2 N={n} D=256", errs,
+              {"factor": 1e-5, "upper": 1e-30, "grad Z": 2e-2,
+               "grad scale": 2e-2, "grad diag": 2e-2})
+    times = ms_in_turns({
+        "kernel": lambda: fused_gram_cholesky(z, 2.0, 0.1),
+        "plain": lambda: fused_gram_cholesky_plain(z, 2.0, 0.1),
+        "library": lambda: library_gram_cholesky(z, 2.0, 0.1)})
+    return kernel_entry(
+        "fused_gram_cholesky", "hbm_cholesky.cu",
+        "deep_kernel_transfer_tpu/ops/pallas/hbm_cholesky.py:283",
+        float((got - want).abs().max()), times,
+        fused_gram_bound_ms(2, 2048, 256), "B=2 N=2048 D=256")
+
+
+def check_fused_gram_cholesky_tiled(device) -> dict:
+    """The tiled kernel + tiled_log_det at B=1, N=32768, D=256 against its
+    plain version (the same left-looking algorithm in torch ops) and the
+    memory demo's plain arm (assemble, then factor): logdet 1e-3 relative
+    to each, the demo's own parity limit (a sum of 32768 f32 logs; the two
+    torch routes differ from each other by about 3e-5 here). The factor's
+    lower tiles' largest difference is reported."""
+    from deep_kernel_transfer_tpu_torch.benchmarks import hbm_memory_demo
+    from deep_kernel_transfer_tpu_torch.ops.hbm_cholesky import (
+        fused_gram_cholesky_tiled, fused_gram_cholesky_tiled_plain,
+        tiled_log_det)
+
+    n = 32768
+    z = hbm_memory_demo.make_z(n, 256, 0, device)
+    got = launched_once(fused_gram_cholesky_tiled,
+                        lambda: fused_gram_cholesky_tiled(z, 2.0, 0.1))
+    want = fused_gram_cholesky_tiled_plain(z, 2.0, 0.1)
+    lower = torch.ones(n // 128, n // 128, device=device).tril().bool()
+    fwd_err = float((got[0][lower] - want[0][lower]).abs().max())
+    ld, ld_plain = tiled_log_det(got), tiled_log_det(want)
+    ld_arm = hbm_memory_demo.logdet_plain(z)
+    del got, want
+    errs = {"factor (abs)": fwd_err,
+            "logdet vs plain": rel_err(ld, ld_plain),
+            "logdet vs plain arm": rel_err(ld, ld_arm)}
+    check(f"fused_gram_cholesky_tiled B=1 N={n} D=256, logdet "
+          f"{float(ld[0])!r}", errs, {"factor (abs)": math.inf,
+                                       "logdet vs plain": 1e-3,
+                                       "logdet vs plain arm": 1e-3})
+    times = ms_in_turns({
+        "kernel": lambda: fused_gram_cholesky_tiled(z, 2.0, 0.1),
+        "plain": lambda: fused_gram_cholesky_tiled_plain(z, 2.0, 0.1),
+        "library": lambda: library_gram_cholesky(z, 2.0, 0.1)},
+        rounds=3, iters=1, warmup=1)
+    return kernel_entry(
+        "fused_gram_cholesky_tiled", "hbm_cholesky.cu",
+        "deep_kernel_transfer_tpu/ops/pallas/hbm_cholesky.py:283", fwd_err,
+        times, fused_gram_bound_ms(1, n, 256, tiled=True), f"B=1 N={n} D=256")
+
+
+def drive_gp_memory_path(device) -> dict:
+    """The GP engine's large-support-set path through the port's entry
+    points, at the JAX benchmark's shapes (benchmarks/run_all.py:370-413)
+    and the memory demo's: logdets (and their gradients where the entry
+    point has one) of blocked_cholesky at B=8, N in {256, 512};
+    hbm_blocked_cholesky at B=2, N=2048; fused_gram_cholesky at B=2, N in
+    {1024, 2048}, D=256; and the demo's fused arm at N=32768. Returns each
+    kernel's launch count over that run."""
+    from deep_kernel_transfer_tpu_torch.benchmarks import hbm_memory_demo
+    from deep_kernel_transfer_tpu_torch.ops.blocked_cholesky import (
+        blocked_cholesky)
+    from deep_kernel_transfer_tpu_torch.ops.hbm_cholesky import (
+        fused_gram_cholesky, fused_gram_cholesky_tiled, hbm_blocked_cholesky)
+
+    inputs = {"blocked": [spd_matrix(8, n, device) for n in (256, 512)],
+              "hbm": 2.0 * (lambda z: z @ z.mT)(unit_rows(2, 2048, 256,
+                                                          device)),
+              "fused": [unit_rows(2, n, 256, device) for n in (1024, 2048)],
+              "demo": hbm_memory_demo.make_z(32768, 256, 0, device)}
+    counters = (blocked_cholesky, hbm_blocked_cholesky, fused_gram_cholesky,
+                fused_gram_cholesky_tiled)
+    for c in counters:
+        c.launches = 0
+    values = []
+    for k in inputs["blocked"]:
+        values += [logdet_of(blocked_cholesky(k)),
+                   grads_of(blocked_cholesky, [k])[0]]
+    values += [logdet_of(hbm_blocked_cholesky(inputs["hbm"], 0.1)),
+               *grads_of(hbm_blocked_cholesky,
+                         [inputs["hbm"], torch.tensor(0.1, device=device)])]
+    for z in inputs["fused"]:
+        values += [logdet_of(fused_gram_cholesky(z, 2.0, 0.1)),
+                   *grads_of(fused_gram_cholesky,
+                             [z, torch.tensor(2.0, device=device),
+                              torch.tensor(0.1, device=device)])]
+    demo_logdet = hbm_memory_demo.logdet_fused(inputs["demo"])
+    values.append(demo_logdet)
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    print(f"GP memory-regime path: launches {launches}, demo logdet at "
+          f"N=32768 {float(demo_logdet[0])!r}", flush=True)
+    if not all(bool(torch.isfinite(v).all()) for v in values):
+        raise AssertionError("non-finite logdet or gradient on the GP path")
+    want = {"blocked_cholesky": 4, "hbm_blocked_cholesky": 2,
+            "fused_gram_cholesky": 4, "fused_gram_cholesky_tiled": 1}
+    if launches != want:
+        raise AssertionError(f"want launches {want}, got {launches}")
+    return launches
 
 
 def drive_main_path(device, card: str) -> dict:
@@ -293,6 +565,8 @@ def main() -> int:
     device = torch.device("cuda")
 
     # 1. the card
+    from deep_kernel_transfer_tpu_torch._device import card_line
+
     card = card_line()
     print(f"device: {torch.cuda.get_device_name(0)} ({card}); torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}", flush=True)
@@ -301,16 +575,25 @@ def main() -> int:
     from deep_kernel_transfer_tpu_torch.ops import build
 
     t0 = time.perf_counter()
-    _, log = build.build("fused_mll")
-    print(f"built fused_mll in {time.perf_counter() - t0:.1f} s\n"
-          f"nvcc fused_mll:\n{log.strip()}", flush=True)
+    built = build.build_all(["fused_mll", "blocked_cholesky", "hbm_cholesky"])
+    print(f"built {', '.join(built)} in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    for name, (_, log) in built.items():
+        print(f"nvcc {name}:\n{log.strip()}", flush=True)
 
     # 3. kernels against their plain versions
     kernels = {"fused_linear_mll": check_fused_mll(device)}
     check_ragged_shape(device)
+    for check_kernel in (check_blocked_cholesky, check_hbm_cholesky,
+                         check_fused_gram_cholesky,
+                         check_fused_gram_cholesky_tiled):
+        entry = check_kernel(device)
+        kernels[entry["name"]] = entry
+    torch.cuda.empty_cache()
 
-    # 4. the main path
+    # 4. the main paths: DKT meta-training, then the GP memory regime
     launches = drive_main_path(device, card)
+    launches.update(drive_gp_memory_path(device))
     for name, entry in kernels.items():
         entry["launches"] = launches[name]
 

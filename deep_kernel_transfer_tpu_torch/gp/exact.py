@@ -18,6 +18,7 @@ from typing import NamedTuple
 
 import torch
 
+from .._device import resolve_device
 from .distributions import MultivariateNormal
 from .kernels import Kernel, dot_f32
 from .likelihoods import GaussianLikelihood
@@ -90,6 +91,9 @@ class ExactGP(NamedTuple):
         return psd_safe_cholesky(k_noisy)
 
     def init(self, noise: float | None = None, device=None) -> dict:
+        """Parameters on `device`: CUDA when None, raising when there is no
+        CUDA device; pass device='cpu' for the CPU."""
+        device = resolve_device(device)
         return {
             "mean": constant_mean_init(device),
             "kernel": self.kernel.init(device),

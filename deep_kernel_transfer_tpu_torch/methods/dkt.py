@@ -112,7 +112,8 @@ class DKT(nn.Module):
         self.feature.reset_parameters(generator)
         if self.kernel_type.lower() == "bncossim":
             add_bn_out(self.feature, self.feature.out_dim(h, w))
-        self.gp = ParamTree(init_batched(self.spec, self.n_way))
+        self.gp = ParamTree(init_batched(self.spec, self.n_way,
+                                         device=self.device))
         self.to(self.device)
         self.reset_opt_state()
         return self

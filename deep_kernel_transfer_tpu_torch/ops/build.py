@@ -1,9 +1,11 @@
-"""Build the package's CUDA kernel with nvcc and load it with ctypes.
+"""Build the package's CUDA kernels with nvcc and load them with ctypes.
 
 `csrc/<name>.cu` compiles into a shared library with a plain C interface
 (`nvcc -shared`, no PyTorch headers, so a build takes seconds). The library
-goes to `_build/` inside the package, named by a hash of its source, so an
-edited source never loads a stale library. Building happens at first use.
+goes to `_build/` inside the package, named by a hash of its source and of
+the shared headers `csrc/*.cuh`, so an edited source never loads a stale
+library. Building happens at first use; `build_all` starts one nvcc per
+source at once.
 """
 from __future__ import annotations
 
@@ -36,28 +38,46 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def build_all(names) -> dict[str, tuple[Path, str]]:
+    """Compile each `csrc/<name>.cu` that is not built already, one nvcc
+    per source, all started together. Returns name -> (library path, nvcc's
+    output: its register and shared-memory report, empty when nothing was
+    built); raises on a failed build."""
+    procs, done = {}, {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            done[name] = (out, "")
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        procs[name] = (out, tmp, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+             str(CSRC_DIR / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (out, tmp, proc) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name}:\n{log}")
+            continue
+        os.replace(tmp, out)
+        done[name] = (out, log)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return done
 
 
 def build(name: str) -> tuple[Path, str]:
-    """Compile `csrc/<name>.cu` unless it is built already. Returns the
-    library's path and nvcc's output (its register and shared-memory
-    report; empty when nothing was built); raises on a failed build."""
-    out = library_path(name)
-    if out.exists():
-        return out, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                           str(CSRC_DIR / f"{name}.cu")],
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                          text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}")
-    os.replace(tmp, out)
-    return out, proc.stdout
+    """`build_all` of one source."""
+    return build_all([name])[name]
 
 
 def load(name: str) -> ctypes.CDLL:

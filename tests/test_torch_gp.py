@@ -193,12 +193,28 @@ def test_psd_safe_cholesky_exhausted_is_nan():
 def test_init_batched_matches_jax():
     jgp, tgp = _gps("linear")
     want = jexact.init_batched(jgp, jax.random.PRNGKey(0), 5)
-    got = texact.init_batched(tgp, 5)
+    got = texact.init_batched(tgp, 5, device="cpu")
     jl, tl = _leaves(want), _leaves(got)
     assert set(jl) == set(tl)
     for k in jl:
         assert tl[k].shape == (5,)
         assert np.array_equal(tl[k].numpy(), np.asarray(jl[k]))
+
+
+@pytest.mark.parametrize("init", ["init", "init_batched"])
+def test_init_without_a_device_is_cuda_or_raises(init):
+    """Entry points run on CUDA unless given device='cpu'."""
+    _, tgp = _gps("linear")
+    make = (lambda **kw: tgp.init(**kw)) if init == "init" else (
+        lambda **kw: texact.init_batched(tgp, 5, **kw))
+    if torch.cuda.is_available():
+        leaves = _leaves(make()).values()
+        assert all(t.is_cuda for t in leaves)
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    assert all(t.device.type == "cpu"
+               for t in _leaves(make(device="cpu")).values())
 
 
 def test_softplus_roundtrip_matches_jax():
