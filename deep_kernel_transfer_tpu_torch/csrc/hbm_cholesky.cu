@@ -12,26 +12,29 @@
 //   fused_gram_cholesky_tiled (fused).
 //
 //   for k in tiles:
-//     C_ik = G(i,k) - sum_{j<k} L_ij L_kj^T, i >= k     tile_update_kernel
-//     L_kk = chol(C_kk)                                 tile_factor_kernel
-//     L_ik = C_ik L_kk^-T, i > k                        tile_panel_kernel
+//     C_ik = G(i,k) - sum_{j<k} L_ij L_kj^T, i >= k     tile_product_kernel
+//     L_kk = chol(C_kk), L_kk^-1 into a [B, T, T] scratch  tile_factor_kernel
+//     L_ik = C_ik (L_kk^-1)^T, i > k                     tile_product_kernel
 //
 // The TPU kernel runs one program per matrix, in order on one core; here
 // the column's nt - k tiles run on their own CTAs, and when they are too few
 // to fill the card (late columns, small B) the strip sum over j is split
-// across CTAs that add their parts atomically. The 7-step Newton inverse of
-// the diagonal tile becomes a triangular solve against the factor in
-// shared memory.
+// across CTAs that add their parts atomically, after a launch that writes
+// the base. Like the TPU kernel (its 7-step Newton inverse, :92-133), the
+// panel goes through an explicit inverse of the diagonal tile; here one
+// exact triangular inverse, formed by the factor kernel, and the panel is a
+// tile product on the same path as the strip.
 //
 // Bound on an H100 SXM: the work is B N^3/3 (+ B N (N+1) D for the fused
-// Gram's lower triangle) in f32 at 67 TFLOP/s; the bytes are K's lower
-// triangle or Z read and L written at 3.35 TB/s. At B=2, N=2048 the
-// operations bind (0.0855 ms general, 0.1175 ms fused with D=256); at B=1,
-// N=32768, D=256 the tiled output is 179 ms of operations. The strip
-// updates are those operations; this first design runs them as an FFMA
-// tile product (128x128 a CTA, 8x8 a thread, 16-deep chunks staged in
-// shared memory) without wgmma or TMA, and adds a serial chain of three
-// launches per column step.
+// Gram's lower triangle) in f32; the bytes are K's lower triangle or Z read
+// and L written at 3.35 TB/s. The operations bind: at 67 TFLOP/s (f32
+// FFMA) 0.0855 ms general and 0.1175 ms fused (D=256) at B=2, N=2048, and
+// 179 ms tiled at B=1, N=32768, D=256; at the 3xTF32 rate this design uses
+// (495 / 3 = 165 TFLOP/s) 0.0347, 0.0477 and 72.7 ms. The strip, Gram and
+// panel products run on the tensor cores in 3xTF32 wgmma with TMA-fed
+// shared-memory stages (tile_cholesky.cuh); each column step still adds a
+// chain of three or four launches, whose diagonal-tile factor runs on one
+// CTA a matrix.
 
 #include <cuda_runtime.h>
 
@@ -39,14 +42,39 @@
 
 using namespace tile_chol;
 
+namespace {
+
+// Into how many parts to split the strip j < k of a column of `ctas` tiles,
+// one CTA an SM: the count that minimises the time in tiles of depth,
+// waves x (depth of a part + 1, a CTA's fixed cost), each part at least 4
+// tiles deep. Split parts add atomically after a launch that writes the
+// base, one more wave of fixed costs.
+int strip_splits(int ctas, int k, int sms) {
+  int best = 1;
+  long long best_cost = -1;
+  for (int s = 1; s <= (k > 4 ? k / 4 : 1); ++s) {
+    const long long waves = ((long long)ctas * s + sms - 1) / sms;
+    const long long cost = waves * ((k + s - 1) / s + 1) +
+                           (s > 1 ? (ctas + sms - 1) / sms : 0);
+    if (best_cost < 0 || cost < best_cost) {
+      best = s;
+      best_cost = cost;
+    }
+  }
+  return best;
+}
+
+}  // namespace
+
 extern "C" {
 
 // src: Z [batch, n, d] when fused, else K [batch, n, n]; out: tiled
-// [batch, nt, nt, 128, 128]. All f32, contiguous, on the device; n and d
-// multiples of 128. Launches on `stream`; returns cudaGetLastError().
-int hbm_cholesky_forward(const float* src, float* out, int batch, int n,
-                         int d, int fused, float scale, float diag,
-                         void* stream) {
+// [batch, nt, nt, 128, 128]; linv: [batch, 128, 128] scratch. All f32,
+// contiguous, on the device; n and d multiples of 128. Launches on
+// `stream`; returns 0, a cudaError_t, or minus a CUresult.
+int hbm_cholesky_forward(const float* src, float* out, float* linv,
+                         int batch, int n, int d, int fused, float scale,
+                         float diag, void* stream) {
   if (n < T || n % T != 0 || batch < 1 || (fused && (d < T || d % T != 0)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
@@ -55,43 +83,59 @@ int hbm_cholesky_forward(const float* src, float* out, int batch, int n,
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const int target = 2 * sms;  // two update CTAs fit on an SM
+
+  TileMap lmap, imap, zmap;
+  if ((err = tiled_map(&lmap, out, n, batch)) != 0) return err;
+  if ((err = inverse_map(&imap, linv, batch)) != 0) return err;
+  if (fused && (err = rows_map(&zmap, src, n, d, batch)) != 0) return err;
+  const TileView lv = tiled_view(out, n);
+  const TileView none{};
+
+  // the column update: base (K, or the Gram of Z) + diag minus the strip
+  ProductArgs up{};
+  up.a1 = up.b1 = fused ? zmap : lmap;
+  up.strip = lmap;
+  up.out = lv;
+  up.base = fused ? none : dense_view(const_cast<float*>(src), n);
+  up.n1 = fused ? d / kChunk : 0;
+  up.scale1 = scale;
+  up.diag = diag;
+  // the panel: C_ik (L_kk^-1)^T for the rows below the diagonal tile
+  ProductArgs panel{};
+  panel.a1 = panel.strip = lmap;
+  panel.b1 = imap;
+  panel.out = lv;
+  panel.base = none;
+  panel.row0 = 1;
+  panel.n1 = T / kChunk;
+  panel.scale1 = 1.f;
 
   const int nt = n / T;
-  const TileView lv = tiled_view(out, n);
-  const TileView kv = dense_view(const_cast<float*>(src), n);
-  const long long z_batch = (long long)n * d;
   for (int k = 0; k < nt; ++k) {
     const int rows = nt - k;
-    // split the strip j < k so that about `target` CTAs run, each over at
-    // least 4 tiles of depth
-    int chunk = k;
-    if (k > 0 && rows * batch < target) {
-      int splits = (target + rows * batch - 1) / (rows * batch);
-      splits = splits < (k + 3) / 4 ? splits : (k + 3) / 4;
-      chunk = (k + splits - 1) / splits;
+    const int splits = strip_splits(rows * batch, k, sms);
+    up.k = k;
+    up.j_begin = 0;
+    up.j_chunk = up.j_end = splits == 1 ? k : 0;
+    tile_product_kernel<false>
+        <<<dim3(rows, 1, batch), kProductThreads, kProductSmem, s>>>(up);
+    if (splits > 1) {
+      ProductArgs part = up;
+      part.n1 = 0;
+      part.j_chunk = (k + splits - 1) / splits;
+      part.j_end = k;
+      tile_product_kernel<true>
+          <<<dim3(rows, (k + part.j_chunk - 1) / part.j_chunk, batch),
+             kProductThreads, kProductSmem, s>>>(part);
     }
-    const int first_end = k < chunk ? k : chunk;
-    if (fused)
-      tile_update_kernel<true, false, false>
-          <<<dim3(rows, 1, batch), kThreads, 0, s>>>(
-              lv, lv, src, z_batch, d, lv, k, 0, first_end, first_end, scale,
-              diag);
-    else
-      tile_update_kernel<false, false, false>
-          <<<dim3(rows, 1, batch), kThreads, 0, s>>>(
-              lv, kv, nullptr, 0, 0, lv, k, 0, first_end, first_end, 1.f,
-              diag);
-    if (first_end < k) {
-      const int rest = (k - first_end + chunk - 1) / chunk;
-      tile_update_kernel<false, true, false>
-          <<<dim3(rows, rest, batch), kThreads, 0, s>>>(
-              lv, lv, nullptr, 0, 0, lv, k, first_end, chunk, k, 1.f, 0.f);
+    tile_factor_kernel<<<batch, kFactorThreads, kFactorSmem, s>>>(lv, k,
+                                                                  linv);
+    if (rows > 1) {
+      panel.k = k;
+      tile_product_kernel<false>
+          <<<dim3(rows - 1, 1, batch), kProductThreads, kProductSmem, s>>>(
+              panel);
     }
-    tile_factor_kernel<<<batch, kThreads, kFactorSmem, s>>>(lv, k);
-    if (rows > 1)
-      tile_panel_kernel<<<dim3(rows - 1, batch), kThreads, kPanelSmem, s>>>(
-          lv, k);
   }
   return (int)cudaGetLastError();
 }

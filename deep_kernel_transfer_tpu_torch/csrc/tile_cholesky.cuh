@@ -1,29 +1,49 @@
 // Building blocks of the tile-blocked Cholesky kernels (blocked_cholesky.cu,
-// hbm_cholesky.cu): 128x128 f32 tiles, 256 threads a CTA, f32 FFMA only (no
-// TF32: every product here feeds a Cholesky).
+// hbm_cholesky.cu): 128x128 f32 tiles.
 //
-//   tile_update_kernel  C_ic = base(i,c) - sum_{j in range} L_ij L_cj^T
-//                       base: a tile of a matrix, or s * Z_i Z_c^T (Gram
-//                       built on the fly), + diag on diagonal tiles; or no
-//                       base, atomically added to C (split over j)
-//   tile_factor_kernel  L_kk = chol(A_kk) in shared memory, zero above
-//   tile_panel_kernel   L_ik = A_ik L_kk^-T, a column sweep of the
-//                       triangular solve with the tile in registers
+//   tile_product_kernel  out(i,c) = [base(i,c)] + s A1 B1^T - sum_j L_ij L_cj^T
+//                        [+ diag on diagonal tiles], or the strip part alone
+//                        added atomically (a strip split over j). A1 B1^T is
+//                        the fused Gram Z_i Z_c^T, or the panel C_ik L_kk^-T
+//                        with the explicit tile inverse.
+//   tile_factor_kernel   L_kk = chol(C_kk) and L_kk^-1, one CTA a matrix
 //
-// Tiles are addressed through a TileView, so one set of kernels serves a
-// dense [B, N, N] matrix (ld = N) and the tile-blocked [B, nt, nt, T, T]
-// layout (ld = T). Every global offset is 64-bit: at N = 106496 a matrix has
-// 1.1e10 elements.
+// Precision: no product here is single-pass TF32. The tile products run on
+// the tensor cores in 3xTF32: each f32 operand is split as a = a_hi + a_lo
+// (a_hi = cvt.rna.tf32(a), a_lo = cvt.rna.tf32(a - a_hi)) and a b is
+// accumulated in f32 as a_hi b_hi + a_hi b_lo + a_lo b_hi, which keeps
+// about f32 accuracy (ops/tf32x3.py repeats this arithmetic for the CPU
+// tests). The factor kernel is f32 FFMA.
+//
+// tile_product_kernel: one CTA a 128x128 output tile, 288 threads. Warp 8
+// is the producer: one thread streams 32-deep chunks of the two operands
+// (128 rows x 128 bytes each) into a ring of 3 shared-memory stages by TMA
+// (cp.async.bulk.tensor, 128-byte swizzle, one mbarrier a stage for "full"
+// and one for "empty"). Warps 0-7 are two consumer warpgroups, each owning
+// 64 rows of the output tile: when a stage arrives they split it in place
+// into hi and lo planes (one pass of all 256 threads, then a named barrier;
+// the split of stage t + 1 runs while the tensor cores work on stage t),
+// and each warpgroup issues 12 wgmma.m64n128k8.f32.tf32.tf32 with both
+// operands K-major in shared memory (L_ij and L_cj are row-major with j
+// along the row, Z is [N, D] row-major: no transpose). The tensor cores
+// add with truncation, so each stage's product starts a fresh wgmma
+// accumulator and is added, with its sign and scale, into an f32 register
+// accumulator by FFMA (64 + 64 f32 a thread). The epilogue adds the base
+// tile and the diagonal and stores, or adds atomically.
+//
+// Tiles are addressed through a TileView (epilogue, factor) and a TileMap
+// (TMA), so one set of kernels serves a dense [B, N, N] matrix (ld = N) and
+// the tile-blocked [B, nt, nt, T, T] layout (ld = T). Every global offset is
+// 64-bit: at N = 106496 a matrix has 1.1e10 elements.
 #pragma once
 
+#include <cuda.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace tile_chol {
 
-constexpr int T = 128;        // tile edge
-constexpr int kThreads = 256; // 16 x 16 threads, each an 8x8 block
-constexpr int KC = 16;        // depth of one staged chunk
-constexpr int LDS = T + 4;    // padded row of a staged chunk (16-byte rows)
+constexpr int T = 128;  // tile edge
 
 struct TileView {
   float* p;
@@ -43,297 +63,571 @@ inline TileView tiled_view(float* p, int n) {
   return TileView{p, nt * nt * T * T, nt * T * T, (long long)T * T, T};
 }
 
-// Thread (tx, ty) owns rows {4ty..4ty+3, 64+4ty..64+4ty+3} and the same
-// pattern of columns with tx, so every staged read is a conflict-free
-// 16-byte load.
-__device__ __forceinline__ int own(int slot, int t) {
-  return (slot < 4) ? 4 * t + slot : 64 + 4 * t + slot - 4;
+// ------------------------------------------------------------- TMA maps
+
+constexpr int kChunk = 32;  // depth of a stage: 32 f32, the 128-byte swizzle
+
+// Chunk q of tile (i, j) starts at column xj j + 32 q, row yi i + yj j.
+struct MapCoord {
+  int xj, yi, yj;
+};
+
+struct TileMap {
+  CUtensorMap map;
+  MapCoord at;
+};
+
+// A 3-D map {cols, rows, batch} of f32 with row stride ld and matrix stride
+// batch_stride (elements), box {32, 128, 1}, 128-byte swizzle. Returns 0 or
+// minus the CUresult.
+inline int encode_map(TileMap* m, const float* p, long long cols,
+                      long long rows, long long batch, long long ld,
+                      long long batch_stride, MapCoord at) {
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
+                              (cuuint64_t)batch};
+  const cuuint64_t strides[2] = {(cuuint64_t)ld * sizeof(float),
+                                 (cuuint64_t)batch_stride * sizeof(float)};
+  const cuuint32_t box[3] = {kChunk, T, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  m->at = at;
+  const CUresult r = cuTensorMapEncodeTiled(
+      &m->map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(p),
+      dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -(int)r;
 }
 
-__device__ __forceinline__ void zero(float (&acc)[8][8]) {
-#pragma unroll
-  for (int a = 0; a < 8; ++a)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) acc[a][c] = 0.f;
+// [B, N, N], tile (i, j) at rows 128 i, columns 128 j
+inline int dense_map(TileMap* m, const float* p, int n, int batch) {
+  return encode_map(m, p, n, n, batch, n, (long long)n * n, {T, T, 0});
 }
 
-// acc (+/-)= A[0:128, 0:depth] B[0:128, 0:depth]^T, both row-major with
-// leading dimensions lda, ldb; depth a multiple of KC. Chunks are staged
-// transposed in shared memory (As, Bs: [KC][LDS]); the next chunk is loaded
-// into registers while the current one is used.
-template <bool kSub>
-__device__ __forceinline__ void gemm_acc(float (&acc)[8][8],
-                                         const float* __restrict__ A, int lda,
-                                         const float* __restrict__ B, int ldb,
-                                         int depth, float* As, float* Bs) {
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  float4 ra[2], rb[2];
-  auto fetch = [&](int k0) {
-#pragma unroll
-    for (int p = 0; p < 2; ++p) {
-      const int idx = tid + kThreads * p;
-      const int r = idx >> 2, q = idx & 3;
-      ra[p] = *reinterpret_cast<const float4*>(A + (size_t)r * lda + k0 + 4 * q);
-      rb[p] = *reinterpret_cast<const float4*>(B + (size_t)r * ldb + k0 + 4 * q);
-    }
-  };
-  fetch(0);
-  for (int k0 = 0; k0 < depth; k0 += KC) {
-#pragma unroll
-    for (int p = 0; p < 2; ++p) {
-      const int idx = tid + kThreads * p;
-      const int r = idx >> 2, q = idx & 3;
-      As[(4 * q + 0) * LDS + r] = ra[p].x;
-      As[(4 * q + 1) * LDS + r] = ra[p].y;
-      As[(4 * q + 2) * LDS + r] = ra[p].z;
-      As[(4 * q + 3) * LDS + r] = ra[p].w;
-      Bs[(4 * q + 0) * LDS + r] = rb[p].x;
-      Bs[(4 * q + 1) * LDS + r] = rb[p].y;
-      Bs[(4 * q + 2) * LDS + r] = rb[p].z;
-      Bs[(4 * q + 3) * LDS + r] = rb[p].w;
-    }
-    __syncthreads();
-    if (k0 + KC < depth) fetch(k0 + KC);
-#pragma unroll
-    for (int kk = 0; kk < KC; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(As + kk * LDS + 4 * ty);
-      const float4 a1 = *reinterpret_cast<const float4*>(As + kk * LDS + 64 + 4 * ty);
-      const float4 b0 = *reinterpret_cast<const float4*>(Bs + kk * LDS + 4 * tx);
-      const float4 b1 = *reinterpret_cast<const float4*>(Bs + kk * LDS + 64 + 4 * tx);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int a = 0; a < 8; ++a)
-#pragma unroll
-        for (int c = 0; c < 8; ++c)
-          acc[a][c] = fmaf(kSub ? -av[a] : av[a], bv[c], acc[a][c]);
-    }
-    __syncthreads();
-  }
+// [B, nt, nt, T, T] seen as [B, nt nt T, T]: tile (i, j) at row (i nt + j) T
+inline int tiled_map(TileMap* m, const float* p, int n, int batch) {
+  const long long nt = n / T;
+  return encode_map(m, p, T, nt * nt * T, batch, T, nt * nt * T * T,
+                    {0, (int)(nt * T), T});
 }
 
-__device__ __forceinline__ void load_tile(float (&acc)[8][8], const float* t,
-                                          int ld) {
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll
-  for (int a = 0; a < 8; ++a) {
-    const float* row = t + (size_t)own(a, ty) * ld;
-    const float4 v0 = *reinterpret_cast<const float4*>(row + 4 * tx);
-    const float4 v1 = *reinterpret_cast<const float4*>(row + 64 + 4 * tx);
-    acc[a][0] = v0.x; acc[a][1] = v0.y; acc[a][2] = v0.z; acc[a][3] = v0.w;
-    acc[a][4] = v1.x; acc[a][5] = v1.y; acc[a][6] = v1.z; acc[a][7] = v1.w;
-  }
+// Z [B, N, D]: tile i is rows 128 i, its chunks run along D
+inline int rows_map(TileMap* m, const float* p, int n, int d, int batch) {
+  return encode_map(m, p, d, n, batch, d, (long long)n * d, {0, T, 0});
 }
 
+// the [B, T, T] scratch of tile inverses: every tile index maps to the one
+// tile of matrix b
+inline int inverse_map(TileMap* m, const float* p, int batch) {
+  return encode_map(m, p, T, T, batch, T, (long long)T * T, {0, 0, 0});
+}
+
+// ------------------------------------------------------ device helpers
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+// wait until the phase of parity `parity` of the barrier has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// chunk q of tile (i, j) of matrix b into shared memory at dst
+__device__ __forceinline__ void load_chunk(uint32_t dst, const TileMap& m,
+                                           int b, int i, int j, int q,
+                                           uint32_t bar) {
+  const int x = m.at.xj * j + kChunk * q, y = m.at.yi * i + m.at.yj * j;
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(&m.map)), "r"(x), "r"(y), "r"(b),
+      "r"(bar)
+      : "memory");
+}
+
+// wgmma descriptor of a K-major operand with the 128-byte swizzle: rows of
+// 128 bytes, 8-row groups 1024 bytes apart (base 1024-byte aligned)
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(kPending)
+               : "memory");
+}
+
+// d (64 rows x 128 columns of this warpgroup) = A B^T + (accumulate ? d :
+// 0), A [64, 8] and B [128, 8] tf32, both K-major in shared memory
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64], uint64_t da,
+                                           uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// cvt.rna.tf32.f32: nearest, ties away from zero, low 13 bits zero
+__device__ __forceinline__ float tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return __uint_as_float(r & 0xFFFFE000u);
+}
+
+__device__ __forceinline__ float4 split_hi(float4 x, float4& lo) {
+  const float4 hi = make_float4(tf32_rna(x.x), tf32_rna(x.y), tf32_rna(x.z),
+                                tf32_rna(x.w));
+  lo = make_float4(tf32_rna(x.x - hi.x), tf32_rna(x.y - hi.y),
+                   tf32_rna(x.z - hi.z), tf32_rna(x.w - hi.w));
+  return hi;
+}
+
+// ------------------------------------------------------ tile product
+
+constexpr int kStages = 3;
+constexpr int kPlane = T * kChunk * 4;   // 16 KB: one operand's chunk
+constexpr int kStageBytes = 4 * kPlane;  // A hi, B hi, A lo, B lo
+constexpr int kConsumers = 256;          // two warpgroups
+constexpr int kProductThreads = kConsumers + 32;
+constexpr size_t kProductSmem =
+    (size_t)kStages * kStageBytes + 16 * kStages + 1024;
+
+struct ProductArgs {
+  TileMap a1, b1;  // the first product's operands (Gram: Z, Z; panel: L, L^-1)
+  TileMap strip;   // L: the strip's operands
+  TileView out, base;  // base.p == nullptr: no base tile
+  int k;               // column (left-looking) or step (right-looking)
+  int tri;   // 1: blockIdx.x enumerates the pairs k < c <= i; 0: the column
+  int row0;  // column mode: i = k + row0 + blockIdx.x, c = k
+  int n1;    // chunks of the first product (A1 tile (i, k), B1 tile (c, k))
+  int j_begin, j_chunk, j_end;  // strip range of split y: [j_begin + y
+                                // j_chunk, j_end), at most j_chunk tiles
+  float scale1, diag;
+};
+
+// out(i, c) of matrix b = blockIdx.z. Without kAtomic the CTA writes
+// base + scale1 A1 B1^T - its part of the strip (+ diag on the diagonal);
+// with kAtomic it adds minus its part of the strip to out.
 template <bool kAtomic>
-__device__ __forceinline__ void store_tile(const float (&acc)[8][8], float* t,
-                                           int ld) {
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll
-  for (int a = 0; a < 8; ++a) {
-    float* row = t + (size_t)own(a, ty) * ld;
-    if (kAtomic) {
-#pragma unroll
-      for (int c = 0; c < 8; ++c) atomicAdd(row + own(c, tx), acc[a][c]);
-    } else {
-      *reinterpret_cast<float4*>(row + 4 * tx) =
-          make_float4(acc[a][0], acc[a][1], acc[a][2], acc[a][3]);
-      *reinterpret_cast<float4*>(row + 64 + 4 * tx) =
-          make_float4(acc[a][4], acc[a][5], acc[a][6], acc[a][7]);
-    }
-  }
-}
-
-// One CTA per output tile (i, c) of matrix b = blockIdx.z:
-//   kTri:  blockIdx.x enumerates the lower pairs c <= i of the tiles below
-//          and right of k (right-looking trailing update, c, i > k);
-//   else:  i = k + blockIdx.x, c = k (left-looking column k).
-// Without kAtomic the CTA writes base(i, c) + diag [i == c] minus its part
-// of the strip; with kAtomic it adds minus its part of the strip to C.
-// The strip range of split y = blockIdx.y is [j_begin + y j_chunk, j_end).
-template <bool kGram, bool kAtomic, bool kTri>
-__global__ void __launch_bounds__(kThreads, 2)
-tile_update_kernel(TileView out, TileView base, const float* __restrict__ z,
-                   long long z_batch, int d, TileView strip, int k,
-                   int j_begin, int j_chunk,
-                   int j_end, float scale, float diag) {
-  __shared__ __align__(16) float As[KC * LDS];
-  __shared__ __align__(16) float Bs[KC * LDS];
+__global__ void __launch_bounds__(kProductThreads, 1)
+    tile_product_kernel(const __grid_constant__ ProductArgs g) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
+  const uint32_t sbase = smem_u32(smem);
+  const uint32_t full0 = sbase + kStages * kStageBytes;
+  const uint32_t empty0 = full0 + 8 * kStages;
   const int b = blockIdx.z;
   int i, c;
-  if (kTri) {
+  if (g.tri) {
     const int x = blockIdx.x;
     int r = (int)((sqrtf(8.f * x + 1.f) - 1.f) * 0.5f);
     while (r * (r + 1) / 2 > x) --r;
     while ((r + 1) * (r + 2) / 2 <= x) ++r;
-    i = k + 1 + r;
-    c = k + 1 + x - r * (r + 1) / 2;
+    i = g.k + 1 + r;
+    c = g.k + 1 + x - r * (r + 1) / 2;
   } else {
-    i = k + blockIdx.x;
-    c = k;
+    i = g.k + g.row0 + blockIdx.x;
+    c = g.k;
   }
-  const int jb = j_begin + blockIdx.y * j_chunk;
-  const int je = min(jb + j_chunk, j_end);
+  const int jb = g.j_begin + blockIdx.y * g.j_chunk;
+  const int je = min(jb + g.j_chunk, g.j_end);
+  const int total = g.n1 + (je > jb ? 4 * (je - jb) : 0);
+  const int warp = threadIdx.x / 32;
 
-  float acc[8][8];
-  if (kAtomic) {
-    zero(acc);
-  } else if (kGram) {
-    // s Z_i Z_c^T, Z [B, N, d] row-major
-    const float* zb = z + (long long)b * z_batch;
-    zero(acc);
-    gemm_acc<false>(acc, zb + (long long)i * T * d, d,
-                    zb + (long long)c * T * d, d, d, As, Bs);
-#pragma unroll
-    for (int a = 0; a < 8; ++a)
-#pragma unroll
-      for (int q = 0; q < 8; ++q) acc[a][q] *= scale;
-  } else {
-    load_tile(acc, base.at(b, i, c), base.ld);
-  }
-  if (!kAtomic && i == c && diag != 0.f) {
-    const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll
-    for (int a = 0; a < 8; ++a)
-#pragma unroll
-      for (int q = 0; q < 8; ++q)
-        if (own(a, ty) == own(q, tx)) acc[a][q] += diag;
-  }
-  for (int j = jb; j < je; ++j)
-    gemm_acc<true>(acc, strip.at(b, i, j), strip.ld, strip.at(b, c, j),
-                   strip.ld, T, As, Bs);
-  store_tile<kAtomic>(acc, out.at(b, i, c), out.ld);
-}
-
-constexpr int kFactorLd = T + 1;
-constexpr size_t kFactorSmem = sizeof(float) * T * kFactorLd;
-
-// L_kk = chol(A_kk) of matrix b = blockIdx.x, in place: the tile goes to
-// shared memory ([T][T+1], conflict-free column reads), a right-looking
-// factorisation runs there (one barrier a step: column j is scaled one step
-// late, when no thread reads it), and L comes back with zeros above the
-// diagonal. Only the lower triangle of A_kk is read.
-__global__ void __launch_bounds__(kThreads)
-tile_factor_kernel(TileView a, int k) {
-  extern __shared__ float K[];
-  const int ld = kFactorLd;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  float* t = a.at(blockIdx.x, k, k);
-  for (int idx = tid; idx < T * T; idx += kThreads) {
-    const int r = idx / T, c = idx % T;
-    if (c <= r) K[r * ld + c] = t[(size_t)r * a.ld + c];
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
-  float d_prev = 0.f;
-  for (int j = 0; j < T; ++j) {
-    const float dj = sqrtf(K[j * ld + j]);
-    if (j > 0) {
-      for (int r = j - 1 + tid; r < T; r += kThreads)
-        K[r * ld + j - 1] = (r == j - 1) ? d_prev : K[r * ld + j - 1] / d_prev;
-    }
-    float li[8], lk[8];
-#pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      const int r = j + 1 + ty + 16 * q;
-      li[q] = (r < T) ? K[r * ld + j] / dj : 0.f;
-      const int c = j + 1 + tx + 16 * q;
-      lk[q] = (c < T) ? K[c * ld + j] / dj : 0.f;
-    }
-#pragma unroll
-    for (int p = 0; p < 8; ++p) {
-      const int r = j + 1 + ty + 16 * p;
-#pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        const int c = j + 1 + tx + 16 * q;
-        if (r < T && c <= r) K[r * ld + c] -= li[p] * lk[q];
+
+  if (warp == kConsumers / 32) {  // producer
+    if (threadIdx.x == kConsumers) {
+      for (int t = 0; t < total; ++t) {
+        const int s = t % kStages;
+        if (t >= kStages) mbar_wait(empty0 + 8 * s, (t / kStages - 1) & 1);
+        const uint32_t full = full0 + 8 * s, dst = sbase + s * kStageBytes;
+        mbar_expect_tx(full, 2 * kPlane);
+        if (t < g.n1) {
+          load_chunk(dst, g.a1, b, i, g.k, t, full);
+          load_chunk(dst + kPlane, g.b1, b, c, g.k, t, full);
+        } else {
+          const int u = t - g.n1, j = jb + u / 4, q = u % 4;
+          load_chunk(dst, g.strip, b, i, j, q, full);
+          load_chunk(dst + kPlane, g.strip, b, c, j, q, full);
+        }
       }
     }
-    d_prev = dj;
+    return;
+  }
+
+  // consumers: warpgroup wg owns rows 64 wg .. 64 wg + 63. The tensor
+  // cores add with truncation, so each stage's 32-deep product goes to a
+  // fresh wgmma accumulator (part) and is then added into acc by FFMA, with
+  // round-to-nearest and its sign and scale: the truncation bias stays
+  // within one stage, however deep the strip.
+  const int wg = warp / 4;
+  float acc[64], part[64];
+#pragma unroll
+  for (int e = 0; e < 64; ++e) acc[e] = part[e] = 0.f;
+  // split stage t in place once it has arrived: hi over the raw chunk, lo
+  // 32 KB on; the named barrier that follows makes it whole for both
+  // warpgroups
+  auto split_stage = [&](int t) {
+    const int s = t % kStages;
+    mbar_wait(full0 + 8 * s, (t / kStages) & 1);
+    float4* hi = reinterpret_cast<float4*>(smem + s * kStageBytes);
+#pragma unroll
+    for (int r = 0; r < 2 * kPlane / 16 / kConsumers; ++r) {
+      const int f = threadIdx.x + kConsumers * r;
+      float4 lo;
+      hi[f] = split_hi(hi[f], lo);
+      hi[f + 2 * kPlane / 16] = lo;
+    }
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  };
+  if (total > 0) split_stage(0);
+  for (int t = 0; t < total; ++t) {
+    const int s = t % kStages;
+    asm volatile("bar.sync 1, %0;" ::"n"(kConsumers) : "memory");
+    const uint32_t sa = sbase + s * kStageBytes + wg * (kPlane / 2);
+    const uint32_t sb = sbase + s * kStageBytes + kPlane;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kChunk / 8; ++kk) {
+      const uint64_t ah = sw128_desc(sa + 32 * kk);
+      const uint64_t al = sw128_desc(sa + 2 * kPlane + 32 * kk);
+      const uint64_t bh = sw128_desc(sb + 32 * kk);
+      const uint64_t bl = sw128_desc(sb + 2 * kPlane + 32 * kk);
+      wgmma_tf32(part, ah, bl, kk > 0);  // the small terms first
+      wgmma_tf32(part, al, bh, 1);
+      wgmma_tf32(part, ah, bh, 1);
+    }
+    wgmma_commit();
+    if (t + 1 < total) split_stage(t + 1);  // while the tensor cores run
+    wgmma_wait<0>();
+    mbar_arrive(empty0 + 8 * s);
+    const float f = t < g.n1 ? g.scale1 : -1.f;
+#pragma unroll
+    for (int e = 0; e < 64; ++e) acc[e] = fmaf(part[e], f, acc[e]);
+  }
+
+  // accumulator layout of m64n128: acc[4 g + 2 h + e] is row
+  // 16 (warp % 4) + lane / 4 + 8 h, column 8 g + 2 (lane % 4) + e
+  const int lane = threadIdx.x % 32;
+  float* o = g.out.at(b, i, c);
+  const float* base = g.base.p ? g.base.at(b, i, c) : nullptr;
+#pragma unroll
+  for (int gi = 0; gi < 16; ++gi) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = 64 * wg + 16 * (warp % 4) + lane / 4 + 8 * h;
+      const int col = 8 * gi + 2 * (lane % 4);
+      float2 v = make_float2(acc[4 * gi + 2 * h], acc[4 * gi + 2 * h + 1]);
+      float* dst = o + (size_t)row * g.out.ld + col;
+      if (kAtomic) {
+        atomicAdd(dst, v.x);
+        atomicAdd(dst + 1, v.y);
+      } else {
+        if (base) {
+          const float2 bv = *reinterpret_cast<const float2*>(
+              base + (size_t)row * g.base.ld + col);
+          v.x += bv.x;
+          v.y += bv.y;
+        }
+        if (i == c && row == col) v.x += g.diag;
+        if (i == c && row == col + 1) v.y += g.diag;
+        *reinterpret_cast<float2*>(dst) = v;
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------- tile factor
+
+constexpr int kFLd = T + 1;  // padded row: conflict-free column reads
+constexpr int kFactorThreads = 256;
+constexpr size_t kFactorSmem = sizeof(float) * (2 * T * kFLd + 3 * 32 * 33);
+
+// lane r holds row r of a 32x32 SPD block in v (zero above the diagonal):
+// right-looking Cholesky in registers and shuffles, no barrier. On return
+// v is row r of L (entries above the diagonal undefined) and rinv[j] is
+// 1 / L_jj on every lane. The chain from one column to the next is one
+// shuffle: lane j + 1 updates its own diagonal entry first and broadcasts
+// it as the next pivot, before the other lanes' updates.
+__device__ __forceinline__ void chol32(float (&v)[32], float (&rinv)[32],
+                                       int lane) {
+  float piv = __shfl_sync(0xffffffffu, v[0], 0);
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    const float r = rsqrtf(piv);
+    rinv[j] = r;
+    const float l = (lane == j) ? piv * r : v[j] * r;
+    v[j] = l;
+    if (j + 1 < 32)
+      piv = __shfl_sync(0xffffffffu, fmaf(-l, l, v[j + 1]), j + 1);
+#pragma unroll
+    for (int c = j + 1; c < 32; ++c)
+      v[c] = fmaf(-l, __shfl_sync(0xffffffffu, l, c), v[c]);
+  }
+}
+
+// (c) of the factor below: L[r][c] -= sum_m X[r][m] X[c][m] over the
+// trailing rows and columns o + 32 + ty + 16 x, o + 32 + tx + 16 y
+// (x, y < kN16), for c <= r; X = L[., o:o + 32]
+template <int kN16>
+__device__ __forceinline__ void trailing_update(float* L, int o, int tid) {
+  const int tx = tid % 16, ty = tid / 16;
+  float acc[kN16][kN16];
+#pragma unroll
+  for (int x = 0; x < kN16; ++x)
+#pragma unroll
+    for (int y = 0; y < kN16; ++y) acc[x][y] = 0.f;
+#pragma unroll 4
+  for (int m = 0; m < 32; ++m) {
+    float xr[kN16], xc[kN16];
+#pragma unroll
+    for (int x = 0; x < kN16; ++x) {
+      xr[x] = L[(o + 32 + ty + 16 * x) * kFLd + o + m];
+      xc[x] = L[(o + 32 + tx + 16 * x) * kFLd + o + m];
+    }
+#pragma unroll
+    for (int x = 0; x < kN16; ++x)
+#pragma unroll
+      for (int y = 0; y < kN16; ++y) acc[x][y] = fmaf(xr[x], xc[y], acc[x][y]);
+  }
+#pragma unroll
+  for (int x = 0; x < kN16; ++x)
+#pragma unroll
+    for (int y = 0; y < kN16; ++y) {
+      const int r = o + 32 + ty + 16 * x, c = o + 32 + tx + 16 * y;
+      if (c <= r) L[r * kFLd + c] -= acc[x][y];
+    }
+}
+
+// L_kk = chol(A_kk) of matrix b = blockIdx.x in place (zeros above the
+// diagonal), and L_kk^-1 into linv[b] ([T, T], zeros above). Only the lower
+// triangle of A_kk is read. The tile sits in shared memory and is factored
+// by 32-wide sub-panels p = 0..3:
+//   (a) warp 0 factors the 32x32 diagonal block in registers (chol32) and
+//       inverts it, D_p^-1, by a right-looking substitution, one column a
+//       lane;
+//   (b) the rows below become X = A D_p^-T, two threads a row;
+//   (c) the trailing part loses X X^T, a 16x16 grid of threads with 6x6,
+//       4x4 or 2x2 outputs each;
+// a barrier after (a) and (c), two around (b). Then the off-diagonal
+// blocks of L^-1, X_pq = -D_p^-1 sum_{q <= m < p} L_pm X_mq, by block
+// diagonals (3 levels, 2 barriers each): 20 block barriers a tile.
+__global__ void __launch_bounds__(kFactorThreads)
+    tile_factor_kernel(TileView a, int k, float* __restrict__ linv) {
+  extern __shared__ float fsm[];
+  float* L = fsm;               // [T][kFLd]: the tile, then L_kk
+  float* X = fsm + T * kFLd;    // [T][kFLd]: L_kk^-1
+  float* P = X + T * kFLd;      // [3][32][33]: sums of the inverse's levels
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int b = blockIdx.x;
+  float* tile = a.at(b, k, k);
+  for (int idx = tid; idx < T * T / 4; idx += kFactorThreads) {
+    const int r = idx / (T / 4), c = 4 * (idx % (T / 4));
+    const float4 v =
+        *reinterpret_cast<const float4*>(tile + (size_t)r * a.ld + c);
+    float* lr = L + r * kFLd + c;
+    float* xr = X + r * kFLd + c;
+    lr[0] = v.x; lr[1] = v.y; lr[2] = v.z; lr[3] = v.w;
+    xr[0] = 0.f; xr[1] = 0.f; xr[2] = 0.f; xr[3] = 0.f;
+  }
+  __syncthreads();
+
+  for (int p = 0; p < 4; ++p) {
+    const int o = 32 * p;
+    if (warp == 0) {
+      float v[32], rinv[32];
+      float* row = L + (o + lane) * kFLd + o;
+#pragma unroll
+      for (int m = 0; m < 32; ++m) v[m] = (m <= lane) ? row[m] : 0.f;
+      chol32(v, rinv, lane);
+#pragma unroll
+      for (int m = 0; m < 32; ++m) row[m] = (m <= lane) ? v[m] : 0.f;
+      __syncwarp();
+      // column `lane` of D_p^-1: s stays 0 above the diagonal
+      float s[32];
+#pragma unroll
+      for (int r = 0; r < 32; ++r) s[r] = (r == lane) ? 1.f : 0.f;
+#pragma unroll
+      for (int m = 0; m < 32; ++m) {
+        s[m] *= rinv[m];
+#pragma unroll
+        for (int r = m + 1; r < 32; ++r)
+          s[r] = fmaf(-L[(o + r) * kFLd + o + m], s[m], s[r]);
+      }
+#pragma unroll
+      for (int r = 0; r < 32; ++r) X[(o + r) * kFLd + o + lane] = s[r];
+    }
+    __syncthreads();
+    const int nb = T - o - 32;  // rows below the diagonal block
+    if (nb == 0) break;
+
+    // (b) row o + 32 + tid / 2: X = A D_p^-T, columns of parity tid % 2
+    const int rb = tid / 2, par = tid % 2;
+    float xs[16];
+    if (rb < nb) {
+      const float* ar = L + (o + 32 + rb) * kFLd + o;
+      float av[32];
+#pragma unroll
+      for (int m = 0; m < 32; ++m) av[m] = ar[m];
+#pragma unroll
+      for (int h = 0; h < 16; ++h) {
+        const float* dr = X + (o + 2 * h + par) * kFLd + o;
+        float sum = 0.f;
+#pragma unroll
+        for (int m = 0; m < 32; ++m) sum = fmaf(av[m], dr[m], sum);
+        xs[h] = sum;
+      }
+    }
+    __syncthreads();
+    if (rb < nb) {
+#pragma unroll
+      for (int h = 0; h < 16; ++h)
+        L[(o + 32 + rb) * kFLd + o + 2 * h + par] = xs[h];
+    }
+    __syncthreads();
+
+    // (c) the trailing part
+    if (nb == 96)
+      trailing_update<6>(L, o, tid);
+    else if (nb == 64)
+      trailing_update<4>(L, o, tid);
+    else
+      trailing_update<2>(L, o, tid);
     __syncthreads();
   }
-  if (tid == 0) K[(T - 1) * ld + T - 1] = d_prev;
-  __syncthreads();
-  for (int idx = tid; idx < T * T; idx += kThreads) {
-    const int r = idx / T, c = idx % T;
-    t[(size_t)r * a.ld + c] = (c <= r) ? K[r * ld + c] : 0.f;
-  }
-}
 
-constexpr size_t kPanelSmem = sizeof(float) * (T * LDS + 2 * T);
-
-// L_ik = A_ik L_kk^-T for tile row i = k + 1 + blockIdx.x of matrix
-// b = blockIdx.y, in place. L_kk^T sits in shared memory; the 128x128 panel
-// tile sits in registers (8x8 a thread). Column j of X is A[:, j] / L_jj,
-// computed by the 16 threads that own it and broadcast through shared
-// memory (double-buffered by the parity of j, so one barrier a step); every
-// thread then removes X[:, j] L[c, j] from its columns c > j.
-__global__ void __launch_bounds__(kThreads)
-tile_panel_kernel(TileView a, int k) {
-  extern __shared__ __align__(16) float smem[];
-  float* Lt = smem;           // [T][LDS], Lt[j][c] = L_kk[c][j]
-  float* xs = smem + T * LDS; // [2][T]
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int b = blockIdx.y;
-  const float* lkk = a.at(b, k, k);
-  for (int idx = tid; idx < T * (T / 4); idx += kThreads) {
-    const int r = idx % T, c4 = idx / T;  // rows fastest: conflict-free stores
-    const float4 v = *reinterpret_cast<const float4*>(lkk + (size_t)r * a.ld + 4 * c4);
-    Lt[(4 * c4 + 0) * LDS + r] = v.x;
-    Lt[(4 * c4 + 1) * LDS + r] = v.y;
-    Lt[(4 * c4 + 2) * LDS + r] = v.z;
-    Lt[(4 * c4 + 3) * LDS + r] = v.w;
-  }
-  float* tile = a.at(b, k + 1 + blockIdx.x, k);
-  float acc[8][8];
-  load_tile(acc, tile, a.ld);
-  __syncthreads();
-
+  // off-diagonal blocks of L^-1 by block diagonals d, blocks (q + d, q):
+  // warp w forms rows w, w + 8, w + 16, w + 24 and the lane the column, so
+  // the reads of L and D_p^-1 are broadcasts and those of X and P
+  // conflict-free
+  for (int d = 1; d < 4; ++d) {
+    for (int q = 0; q + d < 4; ++q) {
+      const int p = q + d;
+      const float* lr = L + (32 * p + warp) * kFLd;
+      float sum[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 8
+      for (int m = 32 * q; m < 32 * p; ++m) {
+        const float x = X[m * kFLd + 32 * q + lane];
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    for (int t = 0; t < 16; ++t) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int j = 64 * h + 4 * t + e;
-        const int slot = 4 * h + e;
-        float* xb = xs + (j & 1) * T;
-        if (tx == t) {
-          const float inv = 1.f / Lt[j * LDS + j];
-#pragma unroll
-          for (int p = 0; p < 8; ++p) {
-            acc[p][slot] *= inv;
-            xb[own(p, ty)] = acc[p][slot];
-          }
-        }
-        __syncthreads();
-        const float4 x0 = *reinterpret_cast<const float4*>(xb + 4 * ty);
-        const float4 x1 = *reinterpret_cast<const float4*>(xb + 64 + 4 * ty);
-        const float4 l0 = *reinterpret_cast<const float4*>(Lt + j * LDS + 4 * tx);
-        const float4 l1 = *reinterpret_cast<const float4*>(Lt + j * LDS + 64 + 4 * tx);
-        const float xv[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
-        const float lv[8] = {l0.x, l0.y, l0.z, l0.w, l1.x, l1.y, l1.z, l1.w};
-#pragma unroll
-        for (int q = 0; q < 8; ++q) {
-          if (own(q, tx) > j) {
-#pragma unroll
-            for (int p = 0; p < 8; ++p) acc[p][q] = fmaf(-xv[p], lv[q], acc[p][q]);
-          }
-        }
+        for (int u = 0; u < 4; ++u)
+          sum[u] = fmaf(lr[8 * u * kFLd + m], x, sum[u]);
       }
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        P[q * 32 * 33 + (warp + 8 * u) * 33 + lane] = sum[u];
     }
+    __syncthreads();
+    for (int q = 0; q + d < 4; ++q) {
+      const int p = q + d;
+      const float* dr = X + (32 * p + warp) * kFLd + 32 * p;
+      float sum[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 8
+      for (int m = 0; m < 32; ++m) {
+        const float t = P[q * 32 * 33 + m * 33 + lane];
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          sum[u] = fmaf(dr[8 * u * kFLd + m], t, sum[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        X[(32 * p + warp + 8 * u) * kFLd + 32 * q + lane] = -sum[u];
+    }
+    __syncthreads();
   }
-  store_tile<false>(acc, tile, a.ld);
+
+  float* inv = linv + (size_t)b * T * T;
+  for (int idx = tid; idx < T * T / 4; idx += kFactorThreads) {
+    const int r = idx / (T / 4), c = 4 * (idx % (T / 4));
+    const float* lr = L + r * kFLd + c;
+    const float* xr = X + r * kFLd + c;
+    *reinterpret_cast<float4*>(tile + (size_t)r * a.ld + c) = make_float4(
+        c <= r ? lr[0] : 0.f, c + 1 <= r ? lr[1] : 0.f,
+        c + 2 <= r ? lr[2] : 0.f, c + 3 <= r ? lr[3] : 0.f);
+    *reinterpret_cast<float4*>(inv + (size_t)r * T + c) = make_float4(
+        c <= r ? xr[0] : 0.f, c + 1 <= r ? xr[1] : 0.f,
+        c + 2 <= r ? xr[2] : 0.f, c + 3 <= r ? xr[3] : 0.f);
+  }
 }
 
-// Raise the dynamic shared-memory limit of the two kernels that need more
-// than 48 KB; returns a cudaError_t.
+// Raise the dynamic shared-memory limit of the kernels that need more than
+// 48 KB; returns a cudaError_t.
 inline int set_smem_limits() {
   cudaError_t err = cudaFuncSetAttribute(
       tile_factor_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)kFactorSmem);
   if (err != cudaSuccess) return (int)err;
-  return (int)cudaFuncSetAttribute(tile_panel_kernel,
+  err = cudaFuncSetAttribute(tile_product_kernel<false>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)kProductSmem);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaFuncSetAttribute(tile_product_kernel<true>,
                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)kPanelSmem);
+                                   (int)kProductSmem);
 }
 
 }  // namespace tile_chol

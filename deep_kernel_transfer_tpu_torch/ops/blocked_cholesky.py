@@ -42,12 +42,21 @@ def chol_rev(chol: torch.Tensor, chol_bar: torch.Tensor) -> torch.Tensor:
     return 0.5 * x
 
 
+def tile_inverse(lkk: torch.Tensor) -> torch.Tensor:
+    """L_kk^-1 of lower-triangular tiles [..., T, T], lower-triangular."""
+    eye = torch.eye(lkk.shape[-1], dtype=lkk.dtype, device=lkk.device)
+    return torch.linalg.solve_triangular(lkk, eye, upper=False)
+
+
 @full_f32()
-def blocked_cholesky_plain(kmat: torch.Tensor) -> torch.Tensor:
+def blocked_cholesky_plain(kmat: torch.Tensor,
+                           product=torch.matmul) -> torch.Tensor:
     """The kernel's function in torch ops, by the kernel's algorithm:
-    for each 128-tile k, factor the diagonal tile, solve the panel below it
-    and update the trailing matrix; the upper triangle is zero. Other N
-    take the stock Cholesky."""
+    for each 128-tile k, factor the diagonal tile and invert it, form the
+    panel below it as A_ik L_kk^-T and update the trailing matrix; the
+    upper triangle is zero. `product` forms the panel and the update
+    (`ops.tf32x3.tf32x3_matmul` repeats the kernel's 3xTF32 arithmetic).
+    Other N take the stock Cholesky."""
     n = kmat.shape[-1]
     if not uses_kernel(n):
         return torch.linalg.cholesky(kmat)
@@ -57,11 +66,9 @@ def blocked_cholesky_plain(kmat: torch.Tensor) -> torch.Tensor:
         lkk = torch.linalg.cholesky(a[:, lo:hi, lo:hi])
         a[:, lo:hi, lo:hi] = lkk
         if hi < n:
-            # X L_kk^T = A_ik  <=>  L_kk X^T = A_ik^T
-            panel = torch.linalg.solve_triangular(
-                lkk, a[:, hi:, lo:hi].mT, upper=False).mT
+            panel = product(a[:, hi:, lo:hi], tile_inverse(lkk).mT)
             a[:, hi:, lo:hi] = panel
-            a[:, hi:, hi:] = a[:, hi:, hi:] - panel @ panel.mT
+            a[:, hi:, hi:] = a[:, hi:, hi:] - product(panel, panel.mT)
     return torch.tril(a)
 
 
@@ -74,16 +81,17 @@ def _forward_cuda(kmat: torch.Tensor) -> torch.Tensor:
     chol = torch.empty_like(kmat)
     if b == 0:
         return chol
+    linv = kmat.new_empty((b, T, T))  # the factor kernel's tile inverses
     fn = build.load("blocked_cholesky").blocked_cholesky_forward
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int,
+                                           ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(kmat.device):
-        err = fn(kmat.data_ptr(), chol.data_ptr(), b, n,
+        err = fn(kmat.data_ptr(), chol.data_ptr(), linv.data_ptr(), b, n,
                  torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"blocked_cholesky_forward launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"blocked_cholesky_forward launch failed: "
+                           f"{build.error_name(err)}")
     blocked_cholesky.launches += 1
     return chol
 

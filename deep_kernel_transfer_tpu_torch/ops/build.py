@@ -1,7 +1,8 @@
 """Build the package's CUDA kernels with nvcc and load them with ctypes.
 
 `csrc/<name>.cu` compiles into a shared library with a plain C interface
-(`nvcc -shared`, no PyTorch headers, so a build takes seconds). The library
+(`nvcc -shared`, no PyTorch headers, so a build takes seconds), linked
+against the driver library for its TMA tensor maps (`-lcuda`). The library
 goes to `_build/` inside the package, named by a hash of its source and of
 the shared headers `csrc/*.cuh`, so an edited source never loads a stale
 library. Building happens at first use; `build_all` starts one nvcc per
@@ -21,7 +22,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lcuda")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -87,3 +88,10 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build(name)[0]))
         _loaded[name] = lib
     return lib
+
+
+def error_name(code: int) -> str:
+    """A kernel entry point's return code: a cudaError_t, or minus a
+    CUresult of the driver (tensor-map encoding)."""
+    return (f"CUDA driver error {-code}" if code < 0
+            else f"CUDA error {code}")

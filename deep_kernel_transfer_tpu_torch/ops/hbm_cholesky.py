@@ -25,7 +25,7 @@ import torch
 
 from ..gp.kernels import full_f32
 from . import build
-from .blocked_cholesky import chol_rev
+from .blocked_cholesky import chol_rev, tile_inverse
 
 T = 128  # tile edge
 
@@ -70,10 +70,13 @@ def _value(x) -> float:
 
 @full_f32()
 def _tiled_plain(src: torch.Tensor, fused: bool, scale: float,
-                 diag: float) -> torch.Tensor:
+                 diag: float, product=torch.matmul) -> torch.Tensor:
     """The kernel's left-looking algorithm in torch ops, tile-blocked; the
     tiles above the diagonal are zero. Column k: C_ik = G(i, k) - sum_{j<k}
-    L_ij L_kj^T for i >= k, L_kk = chol(C_kk), L_ik = C_ik L_kk^-T."""
+    L_ij L_kj^T for i >= k, L_kk = chol(C_kk), L_ik = C_ik L_kk^-T through
+    the explicit inverse. `product` forms the Gram, strip and panel
+    products (`ops.tf32x3.tf32x3_matmul` repeats the kernel's 3xTF32
+    arithmetic)."""
     b, n = src.shape[:2]
     nt = n // T
     out = src.new_zeros((b, nt, nt, T, T))
@@ -81,18 +84,20 @@ def _tiled_plain(src: torch.Tensor, fused: bool, scale: float,
     for k in range(nt):
         lo, hi = k * T, (k + 1) * T
         if fused:
-            col = scale * (src[:, lo:] @ src[:, lo:hi].mT)
+            col = scale * product(src[:, lo:], src[:, lo:hi].mT)
         else:
             col = src[:, lo:, lo:hi]
         col = col.reshape(b, nt - k, T, T)
         if k:
-            col = col - torch.einsum("brjxy,bjzy->brxz", out[:, k:, :k],
-                                     out[:, k, :k])
+            # the strip of tile row i, [T, k T], against that of row k
+            rows = out[:, k:, :k].transpose(2, 3).reshape(b, nt - k, T, k * T)
+            strip = out[:, k, :k].transpose(1, 2).reshape(b, 1, T, k * T)
+            col = col - product(rows, strip.mT)
         lkk = torch.linalg.cholesky(col[:, 0] + diag * eye)
         out[:, k, k] = lkk
         if k + 1 < nt:
-            out[:, k + 1:, k] = torch.linalg.solve_triangular(
-                lkk[:, None], col[:, 1:].mT, upper=False).mT
+            out[:, k + 1:, k] = product(col[:, 1:],
+                                        tile_inverse(lkk).mT[:, None])
     return out
 
 
@@ -130,16 +135,18 @@ def _tiled_cuda(src: torch.Tensor, fused: bool, scale: float,
                       device=src.device)
     if b == 0:
         return out
+    linv = src.new_empty((b, T, T))  # the factor kernel's tile inverses
     fn = build.load("hbm_cholesky").hbm_cholesky_forward
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 4 + [
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
         ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(src.device):
-        err = fn(src.data_ptr(), out.data_ptr(), b, n, d, int(fused),
-                 scale, diag, torch.cuda.current_stream().cuda_stream)
+        err = fn(src.data_ptr(), out.data_ptr(), linv.data_ptr(), b, n, d,
+                 int(fused), scale, diag,
+                 torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"hbm_cholesky_forward launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"hbm_cholesky_forward launch failed: "
+                           f"{build.error_name(err)}")
     return out
 
 

@@ -21,6 +21,7 @@ from jax.experimental import pallas as pl
 
 from deep_kernel_transfer_tpu.ops.pallas import blocked_cholesky as jbc
 from deep_kernel_transfer_tpu_torch.ops import blocked_cholesky as tbc
+from deep_kernel_transfer_tpu_torch.ops.tf32x3 import tf32x3_matmul
 
 
 @pytest.fixture
@@ -109,3 +110,23 @@ def test_cpu_tensors_never_launch_the_kernel():
 def test_rejects_a_non_square_input():
     with pytest.raises(ValueError):
         tbc.blocked_cholesky(torch.zeros(2, 128, 256))
+
+
+@pytest.mark.parametrize("n", [256, 384])
+def test_tf32x3_algorithm_matches_pallas_kernel(interpret_pallas, n):
+    """The kernel's arithmetic, panel through the explicit tile inverse and
+    every product in emulated 3xTF32, within the factor tolerance."""
+    k = _spd(n, seed=4)
+    want = np.asarray(jbc.blocked_cholesky(jnp.asarray(k)))
+    got = tbc.blocked_cholesky_plain(torch.from_numpy(k),
+                                     product=tf32x3_matmul).numpy()
+    assert _rel(got, want) < 1e-5
+    assert _rel(got @ np.transpose(got, (0, 2, 1)), k) < 1e-5
+    assert np.abs(np.triu(got, 1)).max() == 0.0
+
+
+def test_tile_inverse_is_the_lower_inverse():
+    chol = np.linalg.cholesky(_spd(128, seed=5).astype(np.float64))
+    inv = tbc.tile_inverse(torch.from_numpy(chol.astype(np.float32))).numpy()
+    assert np.abs(np.triu(inv, 1)).max() == 0.0
+    assert _rel(inv, np.linalg.inv(chol)) < 1e-5

@@ -24,6 +24,8 @@ from jax.experimental import pallas as pl
 from deep_kernel_transfer_tpu.ops.pallas import hbm_cholesky as jhc
 from deep_kernel_transfer_tpu_torch.benchmarks import hbm_memory_demo as demo
 from deep_kernel_transfer_tpu_torch.ops import hbm_cholesky as thc
+from deep_kernel_transfer_tpu_torch.ops.tf32x3 import (tf32_round, tf32_split,
+                                                       tf32x3_matmul)
 
 B, N, D = 2, 384, 128  # the shape of tests/test_pallas_mll.py:141
 
@@ -194,3 +196,47 @@ def test_demo_runs_each_arm_in_a_subprocess(capsys):
     assert [r["arm"] for r in rows[:2]] == ["plain", "fused"]
     assert all(r["ok"] and np.isfinite(r["logdet"]) for r in rows[:2])
     assert rows[-1]["ok"] and rows[-1]["parity"]["n"] == 256
+
+
+def test_tf32_split_rounds_to_ten_mantissa_bits():
+    rng = np.random.RandomState(6)
+    a = (rng.randn(4096) * np.exp(rng.uniform(-20, 20, 4096))).astype(
+        np.float32)
+    a[:4] = [1.0, -1.0, 1.0 + 2.0 ** -11, 3.0]  # exact and tie cases
+    hi, lo = tf32_split(torch.from_numpy(a))
+    for part in (hi, lo):
+        assert int((part.view(torch.int32) & 0x1FFF).abs().max()) == 0
+    rebuilt = (hi.double() + lo.double()).numpy()
+    assert np.all(np.abs(rebuilt - a) <= 2.0 ** -21 * np.abs(a))
+    # ties round away from zero, as cvt.rna does
+    assert float(hi[2]) == 1.0 + 2.0 ** -10
+
+
+def test_tf32x3_matmul_keeps_f32_accuracy():
+    rng = np.random.RandomState(7)
+    a = rng.randn(3, 128, 384).astype(np.float32)
+    b = rng.randn(384, 128).astype(np.float32)
+    exact = a.astype(np.float64) @ b.astype(np.float64)
+    got = tf32x3_matmul(torch.from_numpy(a), torch.from_numpy(b)).numpy()
+    one_pass = (tf32_round(torch.from_numpy(a))
+                @ tf32_round(torch.from_numpy(b))).numpy()
+    assert _rel(got, exact) < 2e-6
+    assert _rel(one_pass, exact) > 1e-4  # single-pass TF32 would not do
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_tf32x3_algorithm_matches_pallas_kernel(interpret_pallas, fused):
+    """The kernel's arithmetic (panel through the explicit tile inverse,
+    every Gram, strip and panel product in emulated 3xTF32) against the
+    Pallas kernel, general and fused, within the factor tolerance."""
+    z = _z(seed=8)
+    if fused:
+        jlt = jhc.fused_gram_cholesky_tiled(jnp.asarray(z), 1.0, 1.0)
+        src = torch.from_numpy(z)
+    else:
+        k = _gram(z)
+        jlt = jhc._tile_matrix(jhc.hbm_blocked_cholesky(jnp.asarray(k), 1.0))
+        src = torch.from_numpy(k)
+    got = thc._tiled_plain(src, fused, 1.0, 1.0, product=tf32x3_matmul)
+    assert _rel(_lower_tiles(got.numpy()), _lower_tiles(np.asarray(jlt))) < 1e-5
+    assert _rel(thc.tiled_log_det(got).numpy(), jhc.tiled_log_det(jlt)) < 1e-5
