@@ -3,13 +3,17 @@
     python3 chip_smoke.py
 
 1. Prints the card (name, power limit) and the torch/CUDA versions.
-2. Builds every CUDA kernel of the port from `csrc/` with nvcc.
-3. Holds each kernel against its plain torch version on the card at the
+2. Builds every CUDA kernel of the port from `csrc/` with nvcc and prints
+   each kernel's registers, shared memory and spills (`-Xptxas -v`).
+3. Profiles one call of each large-support-set Cholesky kernel at its
+   timed shape with torch.profiler: device ms and launches by kernel, and
+   the idle gaps between launches.
+4. Holds each kernel against its plain torch version on the card at the
    main paths' shapes, and times kernel, plain version and the stock
    library call with CUDA events, in turns: the fused MLL, and the three
    large-support-set Cholesky kernels (blocked, left-looking, fused Gram
    with its tiled form).
-4. Drives the main paths, each with the launch counts set to 0 just before
+5. Drives the main paths, each with the launch counts set to 0 just before
    and read just after:
    - DKT meta-training (Conv4, bncossim, 5-way 5-shot 15-query, 84x84x3
      uint8 episodes, 32 episodes a step, bf16 trunk) for a few steps
@@ -20,7 +24,7 @@
    - the GP engine's memory regime: Cholesky logdets and their gradients
      at the JAX benchmark's shapes and the memory demo's fused arm at
      N = 32768.
-5. Prints one JSON line of kernel results, then as its last line
+6. Prints one JSON line of kernel results, then as its last line
    {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no last
@@ -38,8 +42,11 @@ import time
 import numpy as np
 import torch
 
-# H100 SXM datasheet peaks (dense), used for each kernel's bound
+# H100 SXM datasheet peaks (dense), used for each kernel's bound. The
+# tile-Cholesky kernels form their products in 3xTF32: three TF32 passes
+# for each f32 product, so f32 work at a third of the TF32 rate.
 PEAK_F32_FLOPS = 67e12
+TF32X3_FLOPS = 495e12 / 3
 PEAK_BYTES = 3.35e12
 
 MAIN_B, MAIN_WAY, MAIN_SHOT, MAIN_QUERY, MAIN_PX = 32, 5, 5, 15, 84
@@ -109,10 +116,11 @@ def library_mll(z, diffs, scales, noise):
     return -0.5 * (quad + logdet + n * math.log(2 * math.pi)) / n
 
 
-def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
-    """Least time on an H100 SXM for f32 work: max(operations / peak f32
-    rate, bytes / memory rate), and which of the two binds."""
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+def bound_ms(flops: float, nbytes: float,
+             rate: float = PEAK_F32_FLOPS) -> tuple[float, str]:
+    """Least time on an H100 SXM for f32 work at `rate` FLOP/s: max(
+    operations / rate, bytes / memory rate), and which of the two binds."""
+    t_ops, t_bytes = flops / rate, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -127,20 +135,22 @@ def fused_mll_bound_ms(b: int, n: int, d: int, w: int) -> tuple[float, str]:
     return bound_ms(flops, nbytes)
 
 
-def cholesky_bound_ms(b: int, n: int) -> tuple[float, str]:
+def cholesky_bound_ms(b: int, n: int,
+                      rate: float = TF32X3_FLOPS) -> tuple[float, str]:
     """B·N³/3 f32 operations; K's lower triangle read, dense L written."""
-    return bound_ms(b * n ** 3 / 3.0, 4.0 * (b * n * (n + 1) / 2 + b * n * n))
+    return bound_ms(b * n ** 3 / 3.0, 4.0 * (b * n * (n + 1) / 2 + b * n * n),
+                    rate)
 
 
-def fused_gram_bound_ms(b: int, n: int, d: int,
-                        tiled: bool = False) -> tuple[float, str]:
+def fused_gram_bound_ms(b: int, n: int, d: int, tiled: bool = False,
+                        rate: float = TF32X3_FLOPS) -> tuple[float, str]:
     """The Gram's lower triangle (B·N(N+1)·D) + the factor (B·N³/3); Z
     read, L written: dense, or only the nt(nt+1)/2 lower tiles when
     tiled."""
     nt = n // 128
     out = nt * (nt + 1) / 2 * 128 * 128 if tiled else n * n
     return bound_ms(b * (n * (n + 1) * d + n ** 3 / 3.0),
-                    4.0 * (b * n * d + b * out))
+                    4.0 * (b * n * d + b * out), rate)
 
 
 def check_ragged_shape(device) -> None:
@@ -236,10 +246,15 @@ def launched_once(counter, fn):
 
 
 def kernel_entry(name: str, source: str, replaces: str, err: float,
-                 times: dict, bound: tuple[float, str], shape: str) -> dict:
+                 times: dict, bound: tuple[float, str], shape: str,
+                 ffma_bound: tuple[float, str] | None = None) -> dict:
+    """The kernel's JSON entry. `bound` is at the rate of the kernel's own
+    arithmetic; `ffma_bound`, printed beside it, at the f32 FFMA rate."""
     print(f"{name} {shape}, median (min-max) of turns: " + ", ".join(
         f"{k} {v[0]:.4f} ({v[1]:.4f}-{v[2]:.4f}) ms" for k, v in times.items())
-        + f", bound {bound[0]:.4f} ms ({bound[1]})", flush=True)
+        + f", bound {bound[0]:.4f} ms ({bound[1]})" + (
+            f", f32 FFMA bound {ffma_bound[0]:.4f} ms" if ffma_bound else ""),
+        flush=True)
     return {"name": name, "route": "cuda",
             "source": f"deep_kernel_transfer_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": None, "max_abs_err": err,
@@ -292,7 +307,8 @@ def check_blocked_cholesky(device) -> dict:
     return kernel_entry(
         "blocked_cholesky", "blocked_cholesky.cu",
         "deep_kernel_transfer_tpu/ops/pallas/blocked_cholesky.py:154",
-        fwd_err, times, cholesky_bound_ms(8, 512), "B=8 N=512")
+        fwd_err, times, cholesky_bound_ms(8, 512), "B=8 N=512",
+        cholesky_bound_ms(8, 512, PEAK_F32_FLOPS))
 
 
 def check_hbm_cholesky(device) -> dict:
@@ -329,7 +345,7 @@ def check_hbm_cholesky(device) -> dict:
         "hbm_blocked_cholesky", "hbm_cholesky.cu",
         "deep_kernel_transfer_tpu/ops/pallas/hbm_cholesky.py:283",
         float((got - want).abs().max()), times, cholesky_bound_ms(2, 2048),
-        "B=2 N=2048")
+        "B=2 N=2048", cholesky_bound_ms(2, 2048, PEAK_F32_FLOPS))
 
 
 def library_gram_cholesky(z, scale, diag):
@@ -375,7 +391,8 @@ def check_fused_gram_cholesky(device) -> dict:
         "fused_gram_cholesky", "hbm_cholesky.cu",
         "deep_kernel_transfer_tpu/ops/pallas/hbm_cholesky.py:283",
         float((got - want).abs().max()), times,
-        fused_gram_bound_ms(2, 2048, 256), "B=2 N=2048 D=256")
+        fused_gram_bound_ms(2, 2048, 256), "B=2 N=2048 D=256",
+        fused_gram_bound_ms(2, 2048, 256, rate=PEAK_F32_FLOPS))
 
 
 def check_fused_gram_cholesky_tiled(device) -> dict:
@@ -423,7 +440,8 @@ def check_fused_gram_cholesky_tiled(device) -> dict:
     return kernel_entry(
         "fused_gram_cholesky_tiled", "hbm_cholesky.cu",
         "deep_kernel_transfer_tpu/ops/pallas/hbm_cholesky.py:283", fwd_err,
-        times, fused_gram_bound_ms(1, n, 256, tiled=True), f"B=1 N={n} D=256")
+        times, fused_gram_bound_ms(1, n, 256, tiled=True), f"B=1 N={n} D=256",
+        fused_gram_bound_ms(1, n, 256, tiled=True, rate=PEAK_F32_FLOPS))
 
 
 def profile_cholesky(device) -> None:
@@ -465,12 +483,16 @@ def profile_cholesky(device) -> None:
             name = e.name.split("(")[0].removeprefix("void ")
             ms, count = by_name.get(name, (0.0, 0))
             by_name[name] = (ms + e.time_range.elapsed_us() / 1e3, count + 1)
-        busy = sum(ms for ms, _ in by_name.values())
-        span = (max(e.time_range.end for e in kernels)
-                - min(e.time_range.start for e in kernels)) / 1e3
-        print(f"profile {label}: {len(kernels)} launches, device busy "
-              f"{busy:.4f} ms of a {span:.4f} ms span (gaps {span - busy:.4f}"
-              f" ms)", flush=True)
+        # busy: the union of the kernels' intervals (launches may overlap)
+        busy, end = 0.0, -math.inf
+        for e in sorted(kernels, key=lambda e: e.time_range.start):
+            lo, hi = max(e.time_range.start, end), e.time_range.end
+            busy, end = busy + max(hi - lo, 0) / 1e3, max(end, hi)
+        span = (end - min(e.time_range.start for e in kernels)) / 1e3
+        print(f"profile {label}: {len(kernels)} launches, kernel time "
+              f"{sum(ms for ms, _ in by_name.values()):.4f} ms, device busy "
+              f"{busy:.4f} ms of a {span:.4f} ms span (gaps "
+              f"{span - busy:.4f} ms)", flush=True)
         for name, (ms, count) in sorted(by_name.items(),
                                         key=lambda kv: -kv[1][0]):
             print(f"  {ms:10.4f} ms {count:6d} launches  {name}", flush=True)

@@ -405,8 +405,9 @@ __global__ void __launch_bounds__(kProductThreads, 1)
 // ------------------------------------------------------- tile factor
 
 constexpr int kFLd = T + 1;  // padded row: conflict-free column reads
+constexpr int kPLd = 3 * 32 + 1;
 constexpr int kFactorThreads = 256;
-constexpr size_t kFactorSmem = sizeof(float) * (2 * T * kFLd + 3 * 32 * 33);
+constexpr size_t kFactorSmem = sizeof(float) * (2 * T * kFLd + 32 * kPLd);
 
 // lane r holds row r of a 32x32 SPD block in v (zero above the diagonal):
 // right-looking Cholesky in registers and shuffles, no barrier. On return
@@ -419,7 +420,8 @@ __device__ __forceinline__ void chol32(float (&v)[32], float (&rinv)[32],
   float piv = __shfl_sync(0xffffffffu, v[0], 0);
 #pragma unroll
   for (int j = 0; j < 32; ++j) {
-    const float r = rsqrtf(piv);
+    float r;
+    asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(piv));
     rinv[j] = r;
     const float l = (lane == j) ? piv * r : v[j] * r;
     v[j] = l;
@@ -467,26 +469,29 @@ __device__ __forceinline__ void trailing_update(float* L, int o, int tid) {
 // L_kk = chol(A_kk) of matrix b = blockIdx.x in place (zeros above the
 // diagonal), and L_kk^-1 into linv[b] ([T, T], zeros above). Only the lower
 // triangle of A_kk is read. The tile sits in shared memory and is factored
-// by 32-wide sub-panels p = 0..3:
-//   (a) warp 0 factors the 32x32 diagonal block in registers (chol32) and
-//       inverts it, D_p^-1, by a right-looking substitution, one column a
-//       lane;
-//   (b) the rows below become X = A D_p^-T, two threads a row;
-//   (c) the trailing part loses X X^T, a 16x16 grid of threads with 6x6,
-//       4x4 or 2x2 outputs each;
-// a barrier after (a) and (c), two around (b). Then the off-diagonal
-// blocks of L^-1, X_pq = -D_p^-1 sum_{q <= m < p} L_pm X_mq, by block
-// diagonals (3 levels, 2 barriers each): 20 block barriers a tile.
+// by 32-wide sub-panels p = 0..3, o = 32 p:
+//   (a) warp 0 factors the 32x32 diagonal block D_p in registers (chol32)
+//       and inverts it by a right-looking substitution, one column a lane;
+//       meanwhile warps 1-7 form P = L[o:o+32, :o] X[:o, :o] from the rows
+//       of L^-1 = X finished so far;
+//   (b) the rows below become L[o+32:, o:o+32] D_p^-T, two threads a row,
+//       while the other threads finish row block p of the inverse,
+//       X[o:o+32, :o] = -D_p^-1 P;
+//   (c) the trailing part loses the new panel times its transpose, a 16x16
+//       grid of threads with 6x6, 4x4 or 2x2 outputs each;
+// 15 block barriers a tile where a column sweep takes 128.
 __global__ void __launch_bounds__(kFactorThreads)
     tile_factor_kernel(TileView a, int k, float* __restrict__ linv) {
   extern __shared__ float fsm[];
   float* L = fsm;               // [T][kFLd]: the tile, then L_kk
   float* X = fsm + T * kFLd;    // [T][kFLd]: L_kk^-1
-  float* P = X + T * kFLd;      // [3][32][33]: sums of the inverse's levels
+  float* P = X + T * kFLd;      // [32][kPLd]: L[o:o+32, :o] X[:o, :o]
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int b = blockIdx.x;
   float* tile = a.at(b, k, k);
-  for (int idx = tid; idx < T * T / 4; idx += kFactorThreads) {
+#pragma unroll
+  for (int it = 0; it < T * T / 4 / kFactorThreads; ++it) {
+    const int idx = tid + kFactorThreads * it;
     const int r = idx / (T / 4), c = 4 * (idx % (T / 4));
     const float4 v =
         *reinterpret_cast<const float4*>(tile + (size_t)r * a.ld + c);
@@ -499,7 +504,7 @@ __global__ void __launch_bounds__(kFactorThreads)
 
   for (int p = 0; p < 4; ++p) {
     const int o = 32 * p;
-    if (warp == 0) {
+    if (warp == 0) {  // (a)
       float v[32], rinv[32];
       float* row = L + (o + lane) * kFLd + o;
 #pragma unroll
@@ -521,15 +526,30 @@ __global__ void __launch_bounds__(kFactorThreads)
       }
 #pragma unroll
       for (int r = 0; r < 32; ++r) X[(o + r) * kFLd + o + lane] = s[r];
+    } else if (p > 0) {  // P, warp w rows w - 1 + 7 u, the lane a column
+      const float* lr = L + (o + warp - 1) * kFLd;
+      for (int q = 0; q < p; ++q) {
+        float sum[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+        for (int m = 32 * q; m < o; ++m) {
+          const float x = X[m * kFLd + 32 * q + lane];
+#pragma unroll
+          for (int u = 0; u < 5; ++u)
+            if (warp - 1 + 7 * u < 32)
+              sum[u] = fmaf(lr[7 * u * kFLd + m], x, sum[u]);
+        }
+#pragma unroll
+        for (int u = 0; u < 5; ++u)
+          if (warp - 1 + 7 * u < 32)
+            P[(warp - 1 + 7 * u) * kPLd + 32 * q + lane] = sum[u];
+      }
     }
     __syncthreads();
-    const int nb = T - o - 32;  // rows below the diagonal block
-    if (nb == 0) break;
 
-    // (b) row o + 32 + tid / 2: X = A D_p^-T, columns of parity tid % 2
+    const int nb = T - o - 32;  // rows below the diagonal block
     const int rb = tid / 2, par = tid % 2;
     float xs[16];
-    if (rb < nb) {
+    if (tid < 2 * nb) {  // (b) row o + 32 + rb, columns of parity par
       const float* ar = L + (o + 32 + rb) * kFLd + o;
       float av[32];
 #pragma unroll
@@ -542,9 +562,29 @@ __global__ void __launch_bounds__(kFactorThreads)
         for (int m = 0; m < 32; ++m) sum = fmaf(av[m], dr[m], sum);
         xs[h] = sum;
       }
+    } else if (p > 0) {  // X[o:o+32, :o] = -D_p^-1 P: rows r0 + nw u
+      const int nw = (kFactorThreads - 2 * nb) / 32;  // 4, 6 or 8 warps
+      const int r0 = (tid - 2 * nb) / 32;
+      const float* dr = X + (o + r0) * kFLd + o;
+      for (int q = 0; q < p; ++q) {
+        float sum[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+        for (int m = 0; m < 32; ++m) {
+          const float t = P[m * kPLd + 32 * q + lane];
+#pragma unroll
+          for (int u = 0; u < 8; ++u)
+            if (r0 + nw * u < 32)
+              sum[u] = fmaf(dr[nw * u * kFLd + m], t, sum[u]);
+        }
+#pragma unroll
+        for (int u = 0; u < 8; ++u)
+          if (r0 + nw * u < 32)
+            X[(o + r0 + nw * u) * kFLd + 32 * q + lane] = -sum[u];
+      }
     }
     __syncthreads();
-    if (rb < nb) {
+    if (nb == 0) break;
+    if (tid < 2 * nb) {
 #pragma unroll
       for (int h = 0; h < 16; ++h)
         L[(o + 32 + rb) * kFLd + o + 2 * h + par] = xs[h];
@@ -561,47 +601,10 @@ __global__ void __launch_bounds__(kFactorThreads)
     __syncthreads();
   }
 
-  // off-diagonal blocks of L^-1 by block diagonals d, blocks (q + d, q):
-  // warp w forms rows w, w + 8, w + 16, w + 24 and the lane the column, so
-  // the reads of L and D_p^-1 are broadcasts and those of X and P
-  // conflict-free
-  for (int d = 1; d < 4; ++d) {
-    for (int q = 0; q + d < 4; ++q) {
-      const int p = q + d;
-      const float* lr = L + (32 * p + warp) * kFLd;
-      float sum[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 8
-      for (int m = 32 * q; m < 32 * p; ++m) {
-        const float x = X[m * kFLd + 32 * q + lane];
-#pragma unroll
-        for (int u = 0; u < 4; ++u)
-          sum[u] = fmaf(lr[8 * u * kFLd + m], x, sum[u]);
-      }
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-        P[q * 32 * 33 + (warp + 8 * u) * 33 + lane] = sum[u];
-    }
-    __syncthreads();
-    for (int q = 0; q + d < 4; ++q) {
-      const int p = q + d;
-      const float* dr = X + (32 * p + warp) * kFLd + 32 * p;
-      float sum[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 8
-      for (int m = 0; m < 32; ++m) {
-        const float t = P[q * 32 * 33 + m * 33 + lane];
-#pragma unroll
-        for (int u = 0; u < 4; ++u)
-          sum[u] = fmaf(dr[8 * u * kFLd + m], t, sum[u]);
-      }
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-        X[(32 * p + warp + 8 * u) * kFLd + 32 * q + lane] = -sum[u];
-    }
-    __syncthreads();
-  }
-
   float* inv = linv + (size_t)b * T * T;
-  for (int idx = tid; idx < T * T / 4; idx += kFactorThreads) {
+#pragma unroll
+  for (int it = 0; it < T * T / 4 / kFactorThreads; ++it) {
+    const int idx = tid + kFactorThreads * it;
     const int r = idx / (T / 4), c = 4 * (idx % (T / 4));
     const float* lr = L + r * kFLd + c;
     const float* xr = X + r * kFLd + c;
