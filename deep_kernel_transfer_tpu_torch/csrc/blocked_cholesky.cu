@@ -27,7 +27,7 @@
 // K read, L written, 12.6 MB) take 3.8 us at 3.35 TB/s. What binds instead
 // is the serial chain: 4 column steps of 3 launches, each step's factor on
 // one CTA a matrix. The factor works by 32-wide sub-panels (a warp-register
-// Cholesky of each 32x32 diagonal block, then products), 15 block barriers
+// Cholesky of each 32x32 diagonal block, then products), 12 block barriers
 // a tile for factor and inverse where a column sweep took 128.
 
 #include <cuda_runtime.h>

@@ -466,6 +466,33 @@ __device__ __forceinline__ void trailing_update(float* L, int o, int tid) {
     }
 }
 
+// Row block p of the tile inverse, X[o:o+32, :o] = -D_p^-1 P (o = 32 p,
+// D_p^-1 = X[o:o+32, o:o+32], P [32][kPLd]), on kNW warps: warp r0 forms
+// rows r0 + kNW u, the lane a column.
+template <int kNW>
+__device__ __forceinline__ void inverse_rows(float* X, const float* P, int o,
+                                             int p, int r0, int lane) {
+  constexpr int kRows = (32 + kNW - 1) / kNW;
+  const float* dr = X + (o + r0) * kFLd + o;
+  for (int q = 0; q < p; ++q) {
+    float sum[kRows];
+#pragma unroll
+    for (int u = 0; u < kRows; ++u) sum[u] = 0.f;
+#pragma unroll 4
+    for (int m = 0; m < 32; ++m) {
+      const float t = P[m * kPLd + 32 * q + lane];
+#pragma unroll
+      for (int u = 0; u < kRows; ++u)
+        if (32 % kNW == 0 || r0 + kNW * u < 32)
+          sum[u] = fmaf(dr[kNW * u * kFLd + m], t, sum[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < kRows; ++u)
+      if (32 % kNW == 0 || r0 + kNW * u < 32)
+        X[(o + r0 + kNW * u) * kFLd + 32 * q + lane] = -sum[u];
+  }
+}
+
 // L_kk = chol(A_kk) of matrix b = blockIdx.x in place (zeros above the
 // diagonal), and L_kk^-1 into linv[b] ([T, T], zeros above). Only the lower
 // triangle of A_kk is read. The tile sits in shared memory and is factored
@@ -474,12 +501,12 @@ __device__ __forceinline__ void trailing_update(float* L, int o, int tid) {
 //       and inverts it by a right-looking substitution, one column a lane;
 //       meanwhile warps 1-7 form P = L[o:o+32, :o] X[:o, :o] from the rows
 //       of L^-1 = X finished so far;
-//   (b) the rows below become L[o+32:, o:o+32] D_p^-T, two threads a row,
-//       while the other threads finish row block p of the inverse,
-//       X[o:o+32, :o] = -D_p^-1 P;
+//   (b) the rows below become L[o+32:, o:o+32] D_p^-T, in place, two
+//       threads a row, while the other threads finish row block p of the
+//       inverse, X[o:o+32, :o] = -D_p^-1 P;
 //   (c) the trailing part loses the new panel times its transpose, a 16x16
 //       grid of threads with 6x6, 4x4 or 2x2 outputs each;
-// 15 block barriers a tile where a column sweep takes 128.
+// 12 block barriers a tile where a column sweep takes 128.
 __global__ void __launch_bounds__(kFactorThreads)
     tile_factor_kernel(TileView a, int k, float* __restrict__ linv) {
   extern __shared__ float fsm[];
@@ -489,16 +516,11 @@ __global__ void __launch_bounds__(kFactorThreads)
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int b = blockIdx.x;
   float* tile = a.at(b, k, k);
-#pragma unroll
-  for (int it = 0; it < T * T / 4 / kFactorThreads; ++it) {
-    const int idx = tid + kFactorThreads * it;
-    const int r = idx / (T / 4), c = 4 * (idx % (T / 4));
-    const float4 v =
-        *reinterpret_cast<const float4*>(tile + (size_t)r * a.ld + c);
-    float* lr = L + r * kFLd + c;
-    float* xr = X + r * kFLd + c;
-    lr[0] = v.x; lr[1] = v.y; lr[2] = v.z; lr[3] = v.w;
-    xr[0] = 0.f; xr[1] = 0.f; xr[2] = 0.f; xr[3] = 0.f;
+#pragma unroll 8
+  for (int idx = tid; idx < T * T; idx += kFactorThreads) {
+    const int r = idx / T, c = idx % T;
+    L[r * kFLd + c] = tile[(size_t)r * a.ld + c];
+    X[r * kFLd + c] = 0.f;
   }
   __syncthreads();
 
@@ -547,49 +569,29 @@ __global__ void __launch_bounds__(kFactorThreads)
     __syncthreads();
 
     const int nb = T - o - 32;  // rows below the diagonal block
-    const int rb = tid / 2, par = tid % 2;
-    float xs[16];
-    if (tid < 2 * nb) {  // (b) row o + 32 + rb, columns of parity par
-      const float* ar = L + (o + 32 + rb) * kFLd + o;
+    if (tid < 2 * nb) {  // (b) row o + 32 + tid / 2, columns of parity tid % 2
+      float* ar = L + (o + 32 + tid / 2) * kFLd + o;
       float av[32];
 #pragma unroll
       for (int m = 0; m < 32; ++m) av[m] = ar[m];
-#pragma unroll
-      for (int h = 0; h < 16; ++h) {
-        const float* dr = X + (o + 2 * h + par) * kFLd + o;
+      __syncwarp();  // both threads of the row have read it: write in place
+#pragma unroll 4
+      for (int h = tid % 2; h < 32; h += 2) {
+        const float* dr = X + (o + h) * kFLd + o;
         float sum = 0.f;
 #pragma unroll
         for (int m = 0; m < 32; ++m) sum = fmaf(av[m], dr[m], sum);
-        xs[h] = sum;
+        ar[h] = sum;
       }
-    } else if (p > 0) {  // X[o:o+32, :o] = -D_p^-1 P: rows r0 + nw u
-      const int nw = (kFactorThreads - 2 * nb) / 32;  // 4, 6 or 8 warps
-      const int r0 = (tid - 2 * nb) / 32;
-      const float* dr = X + (o + r0) * kFLd + o;
-      for (int q = 0; q < p; ++q) {
-        float sum[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-#pragma unroll 4
-        for (int m = 0; m < 32; ++m) {
-          const float t = P[m * kPLd + 32 * q + lane];
-#pragma unroll
-          for (int u = 0; u < 8; ++u)
-            if (r0 + nw * u < 32)
-              sum[u] = fmaf(dr[nw * u * kFLd + m], t, sum[u]);
-        }
-#pragma unroll
-        for (int u = 0; u < 8; ++u)
-          if (r0 + nw * u < 32)
-            X[(o + r0 + nw * u) * kFLd + 32 * q + lane] = -sum[u];
-      }
+    } else if (nb == 64) {  // X[o:o+32, :o] = -D_p^-1 P on the other warps
+      inverse_rows<4>(X, P, o, p, (tid - 2 * nb) / 32, lane);
+    } else if (nb == 32) {
+      inverse_rows<6>(X, P, o, p, (tid - 2 * nb) / 32, lane);
+    } else if (nb == 0) {
+      inverse_rows<8>(X, P, o, p, tid / 32, lane);
     }
     __syncthreads();
     if (nb == 0) break;
-    if (tid < 2 * nb) {
-#pragma unroll
-      for (int h = 0; h < 16; ++h)
-        L[(o + 32 + rb) * kFLd + o + 2 * h + par] = xs[h];
-    }
-    __syncthreads();
 
     // (c) the trailing part
     if (nb == 96)
@@ -602,18 +604,11 @@ __global__ void __launch_bounds__(kFactorThreads)
   }
 
   float* inv = linv + (size_t)b * T * T;
-#pragma unroll
-  for (int it = 0; it < T * T / 4 / kFactorThreads; ++it) {
-    const int idx = tid + kFactorThreads * it;
-    const int r = idx / (T / 4), c = 4 * (idx % (T / 4));
-    const float* lr = L + r * kFLd + c;
-    const float* xr = X + r * kFLd + c;
-    *reinterpret_cast<float4*>(tile + (size_t)r * a.ld + c) = make_float4(
-        c <= r ? lr[0] : 0.f, c + 1 <= r ? lr[1] : 0.f,
-        c + 2 <= r ? lr[2] : 0.f, c + 3 <= r ? lr[3] : 0.f);
-    *reinterpret_cast<float4*>(inv + (size_t)r * T + c) = make_float4(
-        c <= r ? xr[0] : 0.f, c + 1 <= r ? xr[1] : 0.f,
-        c + 2 <= r ? xr[2] : 0.f, c + 3 <= r ? xr[3] : 0.f);
+#pragma unroll 8
+  for (int idx = tid; idx < T * T; idx += kFactorThreads) {
+    const int r = idx / T, c = idx % T;
+    tile[(size_t)r * a.ld + c] = c <= r ? L[r * kFLd + c] : 0.f;
+    inv[(size_t)r * T + c] = c <= r ? X[r * kFLd + c] : 0.f;
   }
 }
 
