@@ -507,7 +507,7 @@ __device__ __forceinline__ void inverse_rows(float* X, const float* P, int o,
 //   (c) the trailing part loses the new panel times its transpose, a 16x16
 //       grid of threads with 6x6, 4x4 or 2x2 outputs each;
 // 12 block barriers a tile where a column sweep takes 128.
-__global__ void __launch_bounds__(kFactorThreads)
+__global__ void __launch_bounds__(kFactorThreads, 1)
     tile_factor_kernel(TileView a, int k, float* __restrict__ linv) {
   extern __shared__ float fsm[];
   float* L = fsm;               // [T][kFLd]: the tile, then L_kk
