@@ -399,8 +399,8 @@ def check_fused_gram_cholesky_tiled(device) -> dict:
     """The tiled kernel + tiled_log_det at B=1, N=32768, D=256. The lower
     tiles of the factor: 1e-4 relative to the stock factor (assemble, then
     cuSOLVER), and 5e-4 relative to the plain version (the same
-    left-looking algorithm in torch ops), which is itself about 2.1e-4
-    from the stock factor here: K = 2 Z Z^T + 0.1 I has cond(K) = 3e3
+    left-looking algorithm in torch ops), which is itself 2.1e-4 from the
+    stock factor on an H100: K = 2 Z Z^T + 0.1 I has cond(K) = 3e3
     (eigenvalues 0.1 to about 300), so two f32 routes may differ by
     cond(K) eps = 2e-4. The logdet: 1e-3 relative to the plain version and
     to the memory demo's plain arm, the demo's own parity limit (a sum of
