@@ -23,7 +23,7 @@
 // 64 rows of the output tile: when a stage arrives they split it in place
 // into hi and lo planes (one pass of all 256 threads, then a named barrier;
 // the split of stage t + 1 runs while the tensor cores work on stage t),
-// and each warpgroup issues 12 wgmma.m64n128k8.f32.tf32.tf32 with both
+// and each warpgroup runs 12 wgmma.m64n128k8.f32.tf32.tf32 with both
 // operands K-major in shared memory (L_ij and L_cj are row-major with j
 // along the row, Z is [N, D] row-major: no transpose). The tensor cores
 // add with truncation, so each stage's product starts a fresh wgmma

@@ -2,7 +2,7 @@
 
 `csrc/<name>.cu` compiles into a shared library with a plain C interface
 (`nvcc -shared`, no PyTorch headers, so a build takes seconds), linked
-against the driver library for its TMA tensor maps (`-lcuda`). The library
+against libcuda for its TMA tensor maps (`-lcuda`). The library
 goes to `_build/` inside the package, named by a hash of its source and of
 the shared headers `csrc/*.cuh`, so an edited source never loads a stale
 library. Building happens at first use; `build_all` starts one nvcc per
@@ -91,7 +91,6 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def error_name(code: int) -> str:
-    """A kernel entry point's return code: a cudaError_t, or minus a
-    CUresult of the driver (tensor-map encoding)."""
-    return (f"CUDA driver error {-code}" if code < 0
-            else f"CUDA error {code}")
+    """A kernel entry point's return code: a cudaError_t, or minus the
+    CUresult of a failed tensor-map encoding."""
+    return (f"CUresult {-code}" if code < 0 else f"CUDA error {code}")
