@@ -10,7 +10,8 @@
 //
 // Precision: no product here is single-pass TF32. The tile products run on
 // the tensor cores in 3xTF32: each f32 operand is split as a = a_hi + a_lo
-// (a_hi = cvt.rna.tf32(a), a_lo = cvt.rna.tf32(a - a_hi)) and a b is
+// (a_hi = a rounded to TF32 as cvt.rna.tf32.f32 rounds, a_lo = a - a_hi
+// rounded the same way) and a b is
 // accumulated in f32 as a_hi b_hi + a_hi b_lo + a_lo b_hi, which keeps
 // about f32 accuracy (ops/tf32x3.py repeats this arithmetic for the CPU
 // tests). The factor kernel is f32 FFMA.
@@ -223,11 +224,13 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// cvt.rna.tf32.f32: nearest, ties away from zero, low 13 bits zero
+// The rounding of cvt.rna.tf32.f32 (nearest, ties away from zero, low 13
+// bits zero) in two integer operations on the bit pattern: the sign bit
+// stays apart, so adding half an ulp to the magnitude rounds both signs
+// alike, and a carry into the exponent is the right result. The integer
+// pipes run at full rate where the conversion does not.
 __device__ __forceinline__ float tf32_rna(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return __uint_as_float(r & 0xFFFFE000u);
+  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xFFFFE000u);
 }
 
 __device__ __forceinline__ float4 split_hi(float4 x, float4& lo) {
