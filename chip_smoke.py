@@ -5,9 +5,11 @@
 1. Prints the card (name, power limit) and the torch/CUDA versions.
 2. Builds every CUDA kernel of the port from `csrc/` with nvcc and prints
    each kernel's registers, shared memory and spills (`-Xptxas -v`).
-3. Profiles one call of each large-support-set Cholesky kernel at its
-   timed shape with torch.profiler: device ms and launches by kernel, and
-   the idle gaps between launches.
+3. Profiles with torch.profiler one forward and one backward of the fused
+   MLL at the main path's shape (and checks that the backward runs no
+   triangular solve), and one call of each large-support-set Cholesky
+   kernel at its timed shape: device ms and launches by kernel, and the
+   idle gaps between launches.
 4. Holds each kernel against its plain torch version on the card at the
    main paths' shapes, and times kernel, plain version and the stock
    library call with CUDA events, in turns: the fused MLL, and the three
@@ -127,11 +129,13 @@ def bound_ms(flops: float, nbytes: float,
 
 def fused_mll_bound_ms(b: int, n: int, d: int, w: int) -> tuple[float, str]:
     """The Gram's lower triangle with its diagonal (B·N(N+1)·D; G is
-    symmetric and the Cholesky reads no more) + Cholesky (N³/3) + two
-    solves (2N²) per (episode, way) in f32; Z, diffs, scales read once,
-    mll, L and alpha written once."""
-    flops = 1.0 * b * n * (n + 1) * d + b * w * (n ** 3 / 3.0 + 2.0 * n * n)
-    nbytes = 4.0 * (b * n * d + w * n + w + b * w + b * w * n * n + b * w * n)
+    symmetric and the factor reads no more) + Cholesky and explicit inverse
+    (2N³/3) + the two products with the inverse (2N²) per (episode, way) in
+    f32; Z, diffs, scales read once, mll, L⁻¹, alpha and G written once."""
+    flops = (1.0 * b * n * (n + 1) * d
+             + b * w * (2.0 * n ** 3 / 3.0 + 2.0 * n * n))
+    nbytes = 4.0 * (b * n * d + w * n + w + b * w + b * w * n * n + b * w * n
+                    + b * n * n)
     return bound_ms(flops, nbytes)
 
 
@@ -153,20 +157,40 @@ def fused_gram_bound_ms(b: int, n: int, d: int, tiled: bool = False,
                     4.0 * (b * n * d + b * out), rate)
 
 
-def check_ragged_shape(device) -> None:
-    """A shape off every tile: N = 30, D = 97 (not a multiple of the
-    kernel's 32-wide chunks), W = 3."""
-    from deep_kernel_transfer_tpu_torch.ops.fused_mll import (
-        fused_linear_mll, fused_linear_mll_plain)
+def fused_mll_errors(b: int, n: int, d: int, w: int, device) -> dict:
+    """The fused-MLL kernel (one launch) against its plain version on the
+    same inputs: mll (absolute), the residuals L⁻¹, alpha and G, and the
+    gradients in z, diffs and scales through the shared backward (relative
+    to each one's largest entry)."""
+    from deep_kernel_transfer_tpu_torch.ops import fused_mll as fm
 
-    z, diffs, scales = mll_inputs(3, 30, 97, 3, device)
-    err = float((fused_linear_mll(z, diffs, scales, 30, NOISE)
-                 - fused_linear_mll_plain(z, diffs, scales, 30, NOISE)
-                 ).abs().max())
-    print(f"fused_mll B=3 N=30 D=97 W=3: forward max abs err {err:.3e}",
-          flush=True)
-    if not err < 1e-5:
-        raise AssertionError("fused_mll disagrees with plain at D=97")
+    z, diffs, scales = mll_inputs(b, n, d, w, device)
+    got = launched_once(fm.fused_linear_mll, lambda: fm._forward_cuda(
+        z, diffs, scales, NOISE, 1e-6))
+    want = fm._forward_plain(z, diffs, scales, NOISE, 1e-6)
+    errs = {"mll": float((got[0] - want[0]).abs().max())}
+    errs.update({k: rel_err(a, c) for k, a, c in
+                 zip(("L^-1", "alpha", "G"), got[1:], want[1:])})
+    grads = []
+    for fn in (fm.fused_linear_mll, fm.fused_linear_mll_plain):
+        args = [t.clone().requires_grad_(True) for t in (z, diffs, scales)]
+        grads.append(torch.autograd.grad(-fn(*args, n, NOISE).sum(), args))
+    errs.update({f"grad {k}": rel_err(a, c) for k, a, c in
+                 zip(("z", "diffs", "scales"), *grads)})
+    return errs
+
+
+FUSED_MLL_LIMITS = {"mll": 1e-5, "L^-1": 1e-5, "alpha": 1e-5, "G": 1e-5,
+                    "grad z": 2e-2, "grad diffs": 2e-2, "grad scales": 2e-2}
+
+
+def check_ragged_shape(device) -> None:
+    """Shapes off every tile: N = 30, D = 97 (no multiple of the kernel's
+    32-deep chunks, nor of 4), W = 3; N = 1; N = 65 (one row into a third
+    sub-panel) with D = 33 and W = 11."""
+    for b, n, d, w in ((3, 30, 97, 3), (2, 1, 7, 2), (4, 65, 33, 11)):
+        check(f"fused_mll B={b} N={n} D={d} W={w}",
+              fused_mll_errors(b, n, d, w, device), FUSED_MLL_LIMITS)
 
 
 def check_fused_mll(device) -> dict:
@@ -176,37 +200,24 @@ def check_fused_mll(device) -> dict:
     from deep_kernel_transfer_tpu_torch.ops.fused_mll import (
         fused_linear_mll, fused_linear_mll_plain)
 
-    entry = None
-    for n in (85, 100, 128):
-        z, diffs, scales = mll_inputs(MAIN_B, n, MAIN_D, MAIN_WAY, device)
-        got = launched_once(fused_linear_mll, lambda: fused_linear_mll(
-            z, diffs, scales, n, NOISE))
-        want = fused_linear_mll_plain(z, diffs, scales, n, NOISE)
-        fwd_err = float((got - want).abs().max())
-        grads = []
-        for fn in (fused_linear_mll, fused_linear_mll_plain):
-            args = [t.clone().requires_grad_(True) for t in (z, diffs, scales)]
-            loss = -fn(*args, n, NOISE).sum()
-            grads.append(torch.autograd.grad(loss, args))
-        grad_errs = [rel_err(a, b) for a, b in zip(*grads)]
-        print(f"fused_mll N={n}: forward max abs err {fwd_err:.3e}, grad rel "
-              f"err dz {grad_errs[0]:.3e} ddiffs {grad_errs[1]:.3e} dscales "
-              f"{grad_errs[2]:.3e}", flush=True)
-        if not (fwd_err < 1e-5 and max(grad_errs) < 2e-2):
-            raise AssertionError(f"fused_mll disagrees with plain at N={n}")
-        if n == 100:
-            times = ms_in_turns({
-                "kernel": lambda: fused_linear_mll(z, diffs, scales, n, NOISE),
-                "plain": lambda: fused_linear_mll_plain(z, diffs, scales, n,
-                                                        NOISE),
-                "library": lambda: library_mll(z, diffs, scales, NOISE)})
-            entry = kernel_entry(
-                "fused_linear_mll", "fused_mll.cu",
-                "deep_kernel_transfer_tpu/ops/pallas/fused_mll.py:165",
-                fwd_err, times,
-                fused_mll_bound_ms(MAIN_B, n, MAIN_D, MAIN_WAY),
-                f"B={MAIN_B} N={n} D={MAIN_D} W={MAIN_WAY}")
-    return entry
+    n = MAIN_WAY * (MAIN_SHOT + MAIN_QUERY)
+    fwd_err = None
+    for nn in (85, n, 128):
+        errs = fused_mll_errors(MAIN_B, nn, MAIN_D, MAIN_WAY, device)
+        check(f"fused_mll B={MAIN_B} N={nn} D={MAIN_D} W={MAIN_WAY}", errs,
+              FUSED_MLL_LIMITS)
+        if nn == n:
+            fwd_err = errs["mll"]
+    z, diffs, scales = mll_inputs(MAIN_B, n, MAIN_D, MAIN_WAY, device)
+    times = ms_in_turns({
+        "kernel": lambda: fused_linear_mll(z, diffs, scales, n, NOISE),
+        "plain": lambda: fused_linear_mll_plain(z, diffs, scales, n, NOISE),
+        "library": lambda: library_mll(z, diffs, scales, NOISE)})
+    return kernel_entry(
+        "fused_linear_mll", "fused_mll.cu",
+        "deep_kernel_transfer_tpu/ops/pallas/fused_mll.py:165", fwd_err,
+        times, fused_mll_bound_ms(MAIN_B, n, MAIN_D, MAIN_WAY),
+        f"B={MAIN_B} N={n} D={MAIN_D} W={MAIN_WAY}")
 
 
 def spd_matrix(b: int, n: int, device) -> torch.Tensor:
@@ -444,14 +455,89 @@ def check_fused_gram_cholesky_tiled(device) -> dict:
         fused_gram_bound_ms(1, n, 256, tiled=True, rate=PEAK_F32_FLOPS))
 
 
-def profile_cholesky(device) -> None:
-    """torch.profiler over one call of each Cholesky kernel at its timed
-    shape, after one warm-up call: device ms and launches by kernel name
-    (template instantiations apart), the device's busy time and the idle
-    gaps between the call's first launch and the end of its last."""
-    from torch.autograd import DeviceType
+def profiled(fn, activities=None):
+    """fn() once under torch.profiler (device activity only by default),
+    synchronised; returns the profile."""
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=activities or [ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return prof
+
+
+def print_device_table(label: str, prof) -> float:
+    """Device ms and launches by kernel name (template instantiations
+    apart), the device's busy time and the idle gaps between the first
+    launch and the end of the last; returns the kernels' device ms."""
+    from torch.autograd import DeviceType
+
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name = {}
+    for e in kernels:
+        name = e.name.removeprefix("void ").replace(
+            "(anonymous namespace)::", "").split("(")[0]
+        ms, count = by_name.get(name, (0.0, 0))
+        by_name[name] = (ms + e.time_range.elapsed_us() / 1e3, count + 1)
+    # busy: the union of the kernels' intervals (launches may overlap)
+    busy, end = 0.0, -math.inf
+    for e in sorted(kernels, key=lambda e: e.time_range.start):
+        lo, hi = max(e.time_range.start, end), e.time_range.end
+        busy, end = busy + max(hi - lo, 0) / 1e3, max(end, hi)
+    span = (end - min(e.time_range.start for e in kernels)) / 1e3
+    total = sum(ms for ms, _ in by_name.values())
+    print(f"profile {label}: {len(kernels)} launches, kernel time "
+          f"{total:.4f} ms, device busy {busy:.4f} ms of a {span:.4f} ms "
+          f"span (gaps {span - busy:.4f} ms)", flush=True)
+    for name, (ms, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0]):
+        print(f"  {ms:10.4f} ms {count:6d} launches  {name}", flush=True)
+    return total
+
+
+def profile_fused_mll(device) -> list[str]:
+    """torch.profiler over one forward and one backward of the fused MLL at
+    the main path's shape, after a warm-up: device ms and launches by
+    kernel for each, the forward's share of the GP tail's device time, and
+    the torch ops of the backward. Returns the backward's op and kernel
+    names."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
+    from deep_kernel_transfer_tpu_torch.ops.fused_mll import fused_linear_mll
+
+    n = MAIN_WAY * (MAIN_SHOT + MAIN_QUERY)
+    z, diffs, scales = mll_inputs(MAIN_B, n, MAIN_D, MAIN_WAY, device)
+    args = [t.clone().requires_grad_(True) for t in (z, diffs, scales)]
+    shape = f"B={MAIN_B} N={n} D={MAIN_D} W={MAIN_WAY}"
+
+    def forward():
+        return fused_linear_mll(*args, n, NOISE)
+
+    ones = torch.ones(MAIN_B, MAIN_WAY, device=device)
+    torch.autograd.grad(forward(), args, ones)
+    out = []
+    fwd = profiled(lambda: out.append(forward()))
+    bwd = profiled(lambda: torch.autograd.grad(out[0], args, ones),
+                   [ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    fwd_ms = print_device_table(f"fused_linear_mll forward {shape}", fwd)
+    bwd_ms = print_device_table(f"fused_linear_mll backward {shape}", bwd)
+    ops = {}
+    for e in bwd.events():
+        if e.device_type == DeviceType.CPU and e.name.startswith("aten::"):
+            ops[e.name] = ops.get(e.name, 0) + 1
+    print(f"GP tail {shape}: forward (the kernel) {fwd_ms:.4f} ms, backward "
+          f"{bwd_ms:.4f} ms of device time, the kernel "
+          f"{100 * fwd_ms / (fwd_ms + bwd_ms):.1f}%; the backward's torch "
+          f"ops: " + ", ".join(f"{k} x{v}" for k, v in sorted(ops.items())),
+          flush=True)
+    return list(ops) + [e.name for e in bwd.events()
+                        if e.device_type == DeviceType.CUDA]
+
+
+def profile_cholesky(device) -> None:
+    """torch.profiler over one call of each Cholesky kernel at its timed
+    shape, after one warm-up call: device ms and launches by kernel (see
+    print_device_table)."""
     from deep_kernel_transfer_tpu_torch.benchmarks import hbm_memory_demo
     from deep_kernel_transfer_tpu_torch.ops.blocked_cholesky import (
         blocked_cholesky)
@@ -473,29 +559,7 @@ def profile_cholesky(device) -> None:
     for label, fn in calls.items():
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        kernels = [e for e in prof.events()
-                   if e.device_type == DeviceType.CUDA]
-        by_name = {}
-        for e in kernels:
-            name = e.name.split("(")[0].removeprefix("void ")
-            ms, count = by_name.get(name, (0.0, 0))
-            by_name[name] = (ms + e.time_range.elapsed_us() / 1e3, count + 1)
-        # busy: the union of the kernels' intervals (launches may overlap)
-        busy, end = 0.0, -math.inf
-        for e in sorted(kernels, key=lambda e: e.time_range.start):
-            lo, hi = max(e.time_range.start, end), e.time_range.end
-            busy, end = busy + max(hi - lo, 0) / 1e3, max(end, hi)
-        span = (end - min(e.time_range.start for e in kernels)) / 1e3
-        print(f"profile {label}: {len(kernels)} launches, kernel time "
-              f"{sum(ms for ms, _ in by_name.values()):.4f} ms, device busy "
-              f"{busy:.4f} ms of a {span:.4f} ms span (gaps "
-              f"{span - busy:.4f} ms)", flush=True)
-        for name, (ms, count) in sorted(by_name.items(),
-                                        key=lambda kv: -kv[1][0]):
-            print(f"  {ms:10.4f} ms {count:6d} launches  {name}", flush=True)
+        print_device_table(label, profiled(fn))
 
 
 def drive_gp_memory_path(device) -> dict:
@@ -661,7 +725,12 @@ def main() -> int:
     for name, (_, log) in built.items():
         print(f"nvcc {name}:\n{log.strip()}", flush=True)
 
-    # 3. one call of each Cholesky kernel under torch.profiler
+    # 3. the fused MLL's forward and backward, and one call of each
+    # Cholesky kernel, under torch.profiler
+    solves = [name for name in profile_fused_mll(device)
+              if "triangular" in name.lower() or "trsm" in name.lower()]
+    if solves:
+        raise AssertionError(f"the fused MLL's backward solves: {solves}")
     profile_cholesky(device)
 
     # 4. kernels against their plain versions

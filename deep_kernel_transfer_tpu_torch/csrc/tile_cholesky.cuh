@@ -6,7 +6,9 @@
 //                        added atomically (a strip split over j). A1 B1^T is
 //                        the fused Gram Z_i Z_c^T, or the panel C_ik L_kk^-T
 //                        with the explicit tile inverse.
-//   tile_factor_kernel   L_kk = chol(C_kk) and L_kk^-1, one CTA a matrix
+//   tile_factor_kernel   L_kk = chol(C_kk) and L_kk^-1, one CTA a matrix, by
+//                        factor_sub_panels, which the fused GP-MLL kernel
+//                        (fused_mll.cu) shares in a packed layout
 //
 // Precision: no product here is single-pass TF32. The tile products run on
 // the tensor cores in 3xTF32: each f32 operand is split as a = a_hi + a_lo
@@ -436,12 +438,40 @@ __device__ __forceinline__ void chol32(float (&v)[32], float (&rinv)[32],
   }
 }
 
+// Where entry (r, c) of the factor's matrices L and X sits in shared
+// memory. Dense: row-major [T][kFLd]. LowerBlocks: only the 32x32 blocks on
+// and below the diagonal, block (i, j) the (i (i + 1) / 2 + j)-th, each
+// [32][33] (42 KB where Dense takes 66). In both, a row of a 32x32 block is
+// contiguous and rows lie kRowLd = 1 mod 32 floats apart (conflict-free
+// column reads). The factor touches no block above the diagonal.
+struct Dense {
+  static constexpr int kRowLd = kFLd;
+  __device__ static int at(int r, int c) { return r * kFLd + c; }
+};
+
+struct LowerBlocks {
+  static constexpr int kRowLd = 33;
+  static constexpr int kBlock = 32 * kRowLd;
+  static constexpr int kFloats = (T / 32) * (T / 32 + 1) / 2 * kBlock;
+  __device__ static int at(int r, int c) {
+    const int i = r >> 5;
+    return ((i * (i + 1) >> 1) + (c >> 5)) * kBlock + (r & 31) * kRowLd +
+           (c & 31);
+  }
+};
+
 // (c) of the factor below: L[r][c] -= sum_m X[r][m] X[c][m] over the
 // trailing rows and columns o + 32 + ty + 16 x, o + 32 + tx + 16 y
 // (x, y < kN16), for c <= r; X = L[., o:o + 32]
-template <int kN16>
+template <int kN16, class Lay>
 __device__ __forceinline__ void trailing_update(float* L, int o, int tid) {
   const int tx = tid % 16, ty = tid / 16;
+  int rr[kN16], rc[kN16];  // rows' offsets at column o
+#pragma unroll
+  for (int x = 0; x < kN16; ++x) {
+    rr[x] = Lay::at(o + 32 + ty + 16 * x, o);
+    rc[x] = Lay::at(o + 32 + tx + 16 * x, o);
+  }
   float acc[kN16][kN16];
 #pragma unroll
   for (int x = 0; x < kN16; ++x)
@@ -452,8 +482,8 @@ __device__ __forceinline__ void trailing_update(float* L, int o, int tid) {
     float xr[kN16], xc[kN16];
 #pragma unroll
     for (int x = 0; x < kN16; ++x) {
-      xr[x] = L[(o + 32 + ty + 16 * x) * kFLd + o + m];
-      xc[x] = L[(o + 32 + tx + 16 * x) * kFLd + o + m];
+      xr[x] = L[rr[x] + m];
+      xc[x] = L[rc[x] + m];
     }
 #pragma unroll
     for (int x = 0; x < kN16; ++x)
@@ -465,18 +495,18 @@ __device__ __forceinline__ void trailing_update(float* L, int o, int tid) {
 #pragma unroll
     for (int y = 0; y < kN16; ++y) {
       const int r = o + 32 + ty + 16 * x, c = o + 32 + tx + 16 * y;
-      if (c <= r) L[r * kFLd + c] -= acc[x][y];
+      if (c <= r) L[Lay::at(r, c)] -= acc[x][y];
     }
 }
 
 // Row block p of the tile inverse, X[o:o+32, :o] = -D_p^-1 P (o = 32 p,
 // D_p^-1 = X[o:o+32, o:o+32], P [32][kPLd]), on kNW warps: warp r0 forms
 // rows r0 + kNW u, the lane a column.
-template <int kNW>
+template <int kNW, class Lay>
 __device__ __forceinline__ void inverse_rows(float* X, const float* P, int o,
                                              int p, int r0, int lane) {
   constexpr int kRows = (32 + kNW - 1) / kNW;
-  const float* dr = X + (o + r0) * kFLd + o;
+  const float* dr = X + Lay::at(o + r0, o);
   for (int q = 0; q < p; ++q) {
     float sum[kRows];
 #pragma unroll
@@ -487,51 +517,43 @@ __device__ __forceinline__ void inverse_rows(float* X, const float* P, int o,
 #pragma unroll
       for (int u = 0; u < kRows; ++u)
         if (32 % kNW == 0 || r0 + kNW * u < 32)
-          sum[u] = fmaf(dr[kNW * u * kFLd + m], t, sum[u]);
+          sum[u] = fmaf(dr[kNW * u * Lay::kRowLd + m], t, sum[u]);
     }
 #pragma unroll
     for (int u = 0; u < kRows; ++u)
       if (32 % kNW == 0 || r0 + kNW * u < 32)
-        X[(o + r0 + kNW * u) * kFLd + 32 * q + lane] = -sum[u];
+        X[Lay::at(o + r0 + kNW * u, 32 * q) + lane] = -sum[u];
   }
 }
 
-// L_kk = chol(A_kk) of matrix b = blockIdx.x in place (zeros above the
-// diagonal), and L_kk^-1 into linv[b] ([T, T], zeros above). Only the lower
-// triangle of A_kk is read. The tile sits in shared memory and is factored
-// by 32-wide sub-panels p = 0..3, o = 32 p:
+// The SPD matrix in the leading m x m block of L (m = 32 np <= T, stored
+// as Lay says; only the lower triangle is read) into its Cholesky factor in
+// place, and its explicit inverse into X (the diagonal blocks and the
+// blocks below them; the blocks above are left as they were), on the 256
+// threads of the CTA, which have synchronised after filling L. Factored by
+// 32-wide sub-panels p = 0..np-1, o = 32 p:
 //   (a) warp 0 factors the 32x32 diagonal block D_p in registers (chol32)
 //       and inverts it by a right-looking substitution, one column a lane;
 //       meanwhile warps 1-7 form P = L[o:o+32, :o] X[:o, :o] from the rows
 //       of L^-1 = X finished so far;
-//   (b) the rows below become L[o+32:, o:o+32] D_p^-T, in place, two
+//   (b) the rows below become L[o+32:m, o:o+32] D_p^-T, in place, two
 //       threads a row, while the other threads finish row block p of the
 //       inverse, X[o:o+32, :o] = -D_p^-1 P;
 //   (c) the trailing part loses the new panel times its transpose, a 16x16
 //       grid of threads with 6x6, 4x4 or 2x2 outputs each;
-// 12 block barriers a tile where a column sweep takes 128.
-__global__ void __launch_bounds__(kFactorThreads, 1)
-    tile_factor_kernel(TileView a, int k, float* __restrict__ linv) {
-  extern __shared__ float fsm[];
-  float* L = fsm;               // [T][kFLd]: the tile, then L_kk
-  float* X = fsm + T * kFLd;    // [T][kFLd]: L_kk^-1
-  float* P = X + T * kFLd;      // [32][kPLd]: L[o:o+32, :o] X[:o, :o]
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int b = blockIdx.x;
-  float* tile = a.at(b, k, k);
-#pragma unroll 8
-  for (int idx = tid; idx < T * T; idx += kFactorThreads) {
-    const int r = idx / T, c = idx % T;
-    L[r * kFLd + c] = tile[(size_t)r * a.ld + c];
-    X[r * kFLd + c] = 0.f;
-  }
-  __syncthreads();
-
-  for (int p = 0; p < 4; ++p) {
+// 3 np - 1 block barriers where a column sweep takes m. Ends synchronised.
+template <class Lay>
+__device__ __forceinline__ void factor_sub_panels(float* L, float* X,
+                                                  float* P, int np, int tid) {
+  constexpr int ld = Lay::kRowLd;  // rows apart inside a 32x32 block
+  const int lane = tid % 32, warp = tid / 32;
+  for (int p = 0; p < np; ++p) {
     const int o = 32 * p;
+    float* dl = L + Lay::at(o, o);  // the diagonal blocks D_p and its inverse
+    float* dx = X + Lay::at(o, o);
     if (warp == 0) {  // (a)
       float v[32], rinv[32];
-      float* row = L + (o + lane) * kFLd + o;
+      float* row = dl + lane * ld;
 #pragma unroll
       for (int m = 0; m < 32; ++m) v[m] = (m <= lane) ? row[m] : 0.f;
       chol32(v, rinv, lane);
@@ -547,21 +569,24 @@ __global__ void __launch_bounds__(kFactorThreads, 1)
         s[m] *= rinv[m];
 #pragma unroll
         for (int r = m + 1; r < 32; ++r)
-          s[r] = fmaf(-L[(o + r) * kFLd + o + m], s[m], s[r]);
+          s[r] = fmaf(-dl[r * ld + m], s[m], s[r]);
       }
 #pragma unroll
-      for (int r = 0; r < 32; ++r) X[(o + r) * kFLd + o + lane] = s[r];
+      for (int r = 0; r < 32; ++r) dx[r * ld + lane] = s[r];
     } else if (p > 0) {  // P, warp w rows w - 1 + 7 u, the lane a column
-      const float* lr = L + (o + warp - 1) * kFLd;
       for (int q = 0; q < p; ++q) {
         float sum[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
+        for (int qq = q; qq < p; ++qq) {  // X[32 qq.., 32 q + lane]
+          const float* xc = X + Lay::at(32 * qq, 32 * q) + lane;
+          const float* lr = L + Lay::at(o + warp - 1, 32 * qq);
 #pragma unroll 4
-        for (int m = 32 * q; m < o; ++m) {
-          const float x = X[m * kFLd + 32 * q + lane];
+          for (int m = 0; m < 32; ++m) {
+            const float x = xc[m * ld];
 #pragma unroll
-          for (int u = 0; u < 5; ++u)
-            if (warp - 1 + 7 * u < 32)
-              sum[u] = fmaf(lr[7 * u * kFLd + m], x, sum[u]);
+            for (int u = 0; u < 5; ++u)
+              if (warp - 1 + 7 * u < 32)
+                sum[u] = fmaf(lr[7 * u * ld + m], x, sum[u]);
+          }
         }
 #pragma unroll
         for (int u = 0; u < 5; ++u)
@@ -571,40 +596,63 @@ __global__ void __launch_bounds__(kFactorThreads, 1)
     }
     __syncthreads();
 
-    const int nb = T - o - 32;  // rows below the diagonal block
+    const int nb = 32 * np - o - 32;  // rows below the diagonal block
     if (tid < 2 * nb) {  // (b) row o + 32 + tid / 2, columns of parity tid % 2
-      float* ar = L + (o + 32 + tid / 2) * kFLd + o;
+      float* ar = L + Lay::at(o + 32 + tid / 2, o);
       float av[32];
 #pragma unroll
       for (int m = 0; m < 32; ++m) av[m] = ar[m];
       __syncwarp();  // both threads of the row have read it: write in place
 #pragma unroll 4
       for (int h = tid % 2; h < 32; h += 2) {
-        const float* dr = X + (o + h) * kFLd + o;
+        const float* dr = dx + h * ld;
         float sum = 0.f;
 #pragma unroll
         for (int m = 0; m < 32; ++m) sum = fmaf(av[m], dr[m], sum);
         ar[h] = sum;
       }
     } else if (nb == 64) {  // X[o:o+32, :o] = -D_p^-1 P on the other warps
-      inverse_rows<4>(X, P, o, p, (tid - 2 * nb) / 32, lane);
+      inverse_rows<4, Lay>(X, P, o, p, (tid - 2 * nb) / 32, lane);
     } else if (nb == 32) {
-      inverse_rows<6>(X, P, o, p, (tid - 2 * nb) / 32, lane);
+      inverse_rows<6, Lay>(X, P, o, p, (tid - 2 * nb) / 32, lane);
     } else if (nb == 0) {
-      inverse_rows<8>(X, P, o, p, tid / 32, lane);
+      inverse_rows<8, Lay>(X, P, o, p, tid / 32, lane);
     }
     __syncthreads();
     if (nb == 0) break;
 
     // (c) the trailing part
     if (nb == 96)
-      trailing_update<6>(L, o, tid);
+      trailing_update<6, Lay>(L, o, tid);
     else if (nb == 64)
-      trailing_update<4>(L, o, tid);
+      trailing_update<4, Lay>(L, o, tid);
     else
-      trailing_update<2>(L, o, tid);
+      trailing_update<2, Lay>(L, o, tid);
     __syncthreads();
   }
+}
+
+// L_kk = chol(A_kk) of matrix b = blockIdx.x in place (zeros above the
+// diagonal), and L_kk^-1 into linv[b] ([T, T], zeros above). Only the lower
+// triangle of A_kk is read. 12 block barriers a tile where a column sweep
+// takes 128.
+__global__ void __launch_bounds__(kFactorThreads, 1)
+    tile_factor_kernel(TileView a, int k, float* __restrict__ linv) {
+  extern __shared__ float fsm[];
+  float* L = fsm;               // [T][kFLd]: the tile, then L_kk
+  float* X = fsm + T * kFLd;    // [T][kFLd]: L_kk^-1
+  float* P = X + T * kFLd;      // [32][kPLd]: L[o:o+32, :o] X[:o, :o]
+  const int tid = threadIdx.x;
+  const int b = blockIdx.x;
+  float* tile = a.at(b, k, k);
+#pragma unroll 8
+  for (int idx = tid; idx < T * T; idx += kFactorThreads) {
+    const int r = idx / T, c = idx % T;
+    L[r * kFLd + c] = tile[(size_t)r * a.ld + c];
+    X[r * kFLd + c] = 0.f;
+  }
+  __syncthreads();
+  factor_sub_panels<Dense>(L, X, P, T / 32, tid);
 
   float* inv = linv + (size_t)b * T * T;
 #pragma unroll 8

@@ -1,27 +1,33 @@
 """Fused one-vs-rest linear-kernel GP MLL: Gram + scale + noise + Cholesky +
-solves + MLL for every (episode, way) in one CUDA kernel.
+explicit inverse + MLL for every (episode, way), in `csrc/fused_mll.cu`.
 
 Port of deep_kernel_transfer_tpu/ops/pallas/fused_mll.py. The forward runs
-in `csrc/fused_mll.cu` for CUDA tensors and in `_forward_plain` (torch ops)
-for CPU tensors; the backward is the closed-form MLL gradient of the JAX
-package's `_vjp_bwd` (fused_mll.py:229-253), as torch ops in f32:
+in `csrc/fused_mll.cu` for CUDA tensors and in `_forward_plain` (torch ops,
+the same algorithm) for CPU tensors. Both return the residuals of the
+backward: L^-1, alpha and the Gram G. The backward is the closed-form MLL
+gradient of the JAX package's `_vjp_bwd` (fused_mll.py:229-253), as torch
+ops in f32, with K^-1 = L^-T L^-1 from the forward's L^-1 (no triangular
+solve) and G from the forward (no second Gram):
 
     d mll / dK = 0.5/N (alpha alpha^T - K^-1),   d mll / d diff = -alpha/N
 
-Unlike the TPU kernel, nothing is padded to 128: L and alpha are stored at
-their real size N.
+As in the TPU kernel, K is padded with an identity block, here to the next
+multiple of 32 (the factor's sub-panel); the residuals are stored at their
+real size N.
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from ..gp.kernels import dot_f32, full_f32
 from . import build
 
 _LOG_2PI = 1.8378770664093453
-MAX_N = 128  # one CTA holds the whole N x N matrix in shared memory
+MAX_N = 128  # one CTA holds the whole padded matrix in shared memory
+SUB_PANEL = 32  # the factor's sub-panel: N is padded to a multiple of it
 
 
 def supports(kernel_type: str, n: int) -> bool:
@@ -29,23 +35,42 @@ def supports(kernel_type: str, n: int) -> bool:
     return kernel_type.lower() in ("cossim", "bncossim", "linear") and n <= MAX_N
 
 
-def _forward_plain(z, diffs, scales, noise, jitter):
-    """(mll [B, W], L [B, W, N, N], alpha [B, W, N]) with torch ops."""
-    n = z.shape[1]
-    gram = dot_f32(z, z)
-    eye = torch.eye(n, dtype=z.dtype, device=z.device)
-    k = scales[None, :, None, None] * gram[:, None] + (noise + jitter) * eye
+def padded_size(n: int) -> int:
+    """N rounded up to the factor's sub-panel, as the kernel pads K."""
+    return -(-n // SUB_PANEL) * SUB_PANEL
+
+
+@full_f32()
+def _residuals(gram, diffs, scales, diag: float, m: int):
+    """(mll [B, W], L^-1 [B, W, N, N], alpha [B, W, N]) of K_w = s_w G +
+    diag I padded to m >= N with an identity block, by the kernel's
+    algorithm: Cholesky, explicit inverse, y = L^-1 diff, alpha = L^-T y."""
+    n = gram.shape[-1]
+    eye = torch.eye(n, dtype=gram.dtype, device=gram.device)
+    k = scales[None, :, None, None] * gram[:, None] + diag * eye
+    pad = torch.ones(m, dtype=gram.dtype, device=gram.device)
+    pad[:n] = 0
+    k = F.pad(k, (0, m - n, 0, m - n)) + torch.diag(pad)
     chol = torch.linalg.cholesky(k)
-    y = torch.linalg.solve_triangular(
-        chol, diffs[None, :, :, None].expand(z.shape[0], -1, -1, -1),
+    linv = torch.linalg.solve_triangular(
+        chol, torch.eye(m, dtype=k.dtype, device=k.device).expand_as(chol),
         upper=False)
-    alpha = torch.linalg.solve_triangular(chol.transpose(-1, -2), y,
-                                          upper=True)[..., 0]
-    quad = torch.sum(y[..., 0] ** 2, dim=-1)
+    y = (linv @ F.pad(diffs, (0, m - n))[None, :, :, None])[..., 0]
+    alpha = (linv.mT @ y[..., None])[..., 0]
+    quad = torch.sum(y ** 2, dim=-1)
     logdet = 2.0 * torch.sum(
-        torch.log(torch.diagonal(chol, dim1=-2, dim2=-1)), dim=-1)
+        torch.log(torch.diagonal(chol, dim1=-2, dim2=-1)[..., :n]), dim=-1)
     mll = -0.5 * (quad + logdet + n * _LOG_2PI) / n
-    return mll, chol, alpha
+    return mll, linv[..., :n, :n], alpha[..., :n]
+
+
+def _forward_plain(z, diffs, scales, noise, jitter):
+    """(mll [B, W], L^-1 [B, W, N, N], alpha [B, W, N], G [B, N, N]) with
+    torch ops."""
+    gram = dot_f32(z, z)
+    mll, linv, alpha = _residuals(gram, diffs, scales, noise + jitter,
+                                  padded_size(z.shape[1]))
+    return mll, linv, alpha, gram
 
 
 def fused_linear_mll_plain(z, diffs, scales, n_real: int, noise: float,
@@ -78,48 +103,52 @@ def _forward_cuda(z, diffs, scales, noise, jitter):
     if n > MAX_N:
         raise ValueError(f"fused_linear_mll kernel takes N <= {MAX_N}, got {n}")
     z, diffs, scales = z.contiguous(), diffs.contiguous(), scales.contiguous()
-    mll = torch.empty((b, w), dtype=torch.float32, device=z.device)
-    chol = torch.empty((b, w, n, n), dtype=torch.float32, device=z.device)
-    alpha = torch.empty((b, w, n), dtype=torch.float32, device=z.device)
+    out = dict(dtype=torch.float32, device=z.device)
+    mll = torch.empty((b, w), **out)
+    linv = torch.empty((b, w, n, n), **out)
+    alpha = torch.empty((b, w, n), **out)
+    gram = torch.empty((b, n, n), **out)
     lib = build.load("fused_mll")
+    size = lib.fused_mll_workspace_floats
+    size.argtypes = [ctypes.c_int] * 3
+    size.restype = ctypes.c_longlong
     fn = lib.fused_mll_forward
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
         ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(z.device):
+        work = torch.empty(size(b, n, d), **out)  # the Gram's D-shares
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(z.data_ptr(), diffs.data_ptr(), scales.data_ptr(),
-                 mll.data_ptr(), chol.data_ptr(), alpha.data_ptr(),
-                 b, n, d, w, float(noise + jitter), stream)
+                 mll.data_ptr(), linv.data_ptr(), alpha.data_ptr(),
+                 gram.data_ptr(), work.data_ptr(), b, n, d, w,
+                 float(noise + jitter), stream)
     if err != 0:
-        raise RuntimeError(f"fused_mll_forward launch failed: CUDA error {err}")
+        raise RuntimeError(f"fused_mll_forward launch failed: "
+                           f"{build.error_name(err)}")
     fused_linear_mll.launches += 1
-    return mll, chol, alpha
+    return mll, linv, alpha, gram
 
 
 class _FusedLinearMLL(torch.autograd.Function):
     @staticmethod
     def forward(ctx, z, diffs, scales, noise, jitter):
         fwd = _forward_cuda if z.is_cuda else _forward_plain
-        mll, chol, alpha = fwd(z, diffs, scales, noise, jitter)
-        ctx.save_for_backward(z, scales, chol, alpha)
+        mll, linv, alpha, gram = fwd(z, diffs, scales, noise, jitter)
+        ctx.save_for_backward(z, scales, linv, alpha, gram)
         return mll
 
     @staticmethod
     @full_f32()
     def backward(ctx, g):
-        z, scales, chol, alpha = ctx.saved_tensors
+        z, scales, linv, alpha, gram = ctx.saved_tensors
         n = z.shape[1]
-        eye = torch.eye(n, dtype=z.dtype, device=z.device)
-        linv = torch.linalg.solve_triangular(chol, eye.expand_as(chol),
-                                             upper=False)
-        kinv = linv.transpose(-1, -2) @ linv  # K^-1 = L^-T L^-1
+        kinv = linv.mT @ linv  # K^-1 = L^-T L^-1
         dk = (0.5 / n) * (alpha[..., :, None] * alpha[..., None, :] - kinv)
         dk = dk * g[:, :, None, None]
         # K_w = s_w Z Z^T + noise I
-        m = torch.einsum("bwij,w->bij", dk + dk.transpose(-1, -2), scales)
+        m = torch.einsum("bwij,w->bij", dk + dk.mT, scales)
         dz = m @ z
-        gram = z @ z.transpose(-1, -2)
         dscales = torch.einsum("bwij,bij->w", dk, gram)
         ddiffs = -torch.einsum("bw,bwi->wi", g, alpha) / n
         return dz, ddiffs, dscales, None, None

@@ -1,11 +1,14 @@
 """The port's fused GP-MLL (deep_kernel_transfer_tpu_torch/ops/fused_mll.py)
 against the JAX package's Pallas kernel, run in interpret mode on the CPU.
 
-On CPU tensors the port's wrapper takes its plain torch forward with the
-closed-form backward; the CUDA kernel itself is held to that plain version
-on the card by chip_smoke.py. Tolerances are those of the JAX package's own
-kernel test (tests/test_pallas_mll.py:39,45): forward 1e-5 absolute,
-gradients 2e-2 relative to each gradient's largest entry.
+On CPU tensors the port's wrapper takes its plain torch forward (the
+kernel's algorithm: K identity-padded to a multiple of 32, Cholesky,
+explicit inverse, products) with the closed-form backward, which takes
+K^-1 and the Gram from the forward's residuals; the CUDA kernel itself is
+held to that plain version on the card by chip_smoke.py. Tolerances are
+those of the JAX package's own kernel test (tests/test_pallas_mll.py:39,45):
+forward 1e-5 absolute, gradients 2e-2 relative to each gradient's largest
+entry.
 """
 import functools
 
@@ -21,7 +24,7 @@ from deep_kernel_transfer_tpu.ops.pallas import fused_mll as jfm
 from deep_kernel_transfer_tpu_torch.ops import fused_mll as tfm
 
 NOISE = 0.1
-SHAPES = [(30, 96), (100, 256)]  # (N, D), B=3 episodes, W=5 ways
+SHAPES = [(30, 96), (100, 256), (128, 160)]  # (N, D), B=3 episodes, W=5 ways
 
 
 @pytest.fixture
@@ -72,6 +75,39 @@ def test_backward_matches_pallas_vjp(interpret_pallas, n, d):
                               args)
     for g, w in zip(got, want):
         assert _rel(g.numpy(), np.asarray(w)) < 2e-2
+
+
+@pytest.mark.parametrize("n,d", SHAPES)
+def test_residuals_match_pallas_kernel(interpret_pallas, n, d):
+    """The plain forward's residuals against the Pallas kernel's: L^-1
+    against the inverse of its factor, alpha, and the Gram."""
+    z, diffs, scales = _inputs(n, d)
+    _, chol, alpha = jfm._fwd_impl(jnp.asarray(z), jnp.asarray(diffs),
+                                   jnp.asarray(scales), n, NOISE, 1e-6)
+    chol = np.asarray(chol, np.float64)[:, :, :n, :n]
+    _, linv, got_alpha, gram = tfm._forward_plain(
+        *(torch.from_numpy(a) for a in (z, diffs, scales)), NOISE, 1e-6)
+    assert linv.shape == (3, 5, n, n) and gram.shape == (3, n, n)
+    assert _rel(linv.numpy(), np.linalg.inv(chol)) < 1e-5
+    assert _rel(got_alpha.numpy(), np.asarray(alpha)[:, :, :n]) < 1e-5
+    z64 = z.astype(np.float64)
+    assert _rel(gram.numpy(), z64 @ z64.transpose(0, 2, 1)) < 1e-6
+
+
+@pytest.mark.parametrize("n", [30, 100])
+def test_identity_pad_adds_nothing(n):
+    """K padded with an identity block to the kernel's size gives the same
+    mll, L^-1 and alpha as K unpadded, relative to each one's largest entry:
+    in float64 to rounding, in float32 within the forward tolerance (the
+    factor's blocking differs between the two sizes)."""
+    z, diffs, scales = (torch.from_numpy(a) for a in _inputs(n, 64))
+    assert tfm.padded_size(n) == 32 * -(-n // 32)
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        args = (tfm.dot_f32(z.to(dtype), z.to(dtype)), diffs.to(dtype),
+                scales.to(dtype), NOISE + 1e-6)
+        for a, b in zip(tfm._residuals(*args, n),
+                        tfm._residuals(*args, tfm.padded_size(n))):
+            assert _rel(a.numpy(), b.numpy()) < tol
 
 
 @pytest.mark.parametrize("fn", ["fused_linear_mll", "fused_linear_mll_plain"])
