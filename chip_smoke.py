@@ -25,7 +25,16 @@
      torch.profiler table of the step's device time by kernel;
    - the GP engine's memory regime: Cholesky logdets and their gradients
      at the JAX benchmark's shapes and the memory demo's fused arm at
-     N = 32768.
+     N = 32768;
+   - the CLIs at full width, in a temporary working directory: a
+     miniImagenet-layout dataset (64/16/20 classes x 600 images, 96x96
+     PNGs written by a stdlib writer, each class with a visible signature)
+     with its stage caches written beforehand (no image decoder needed),
+     then `train.main` (Conv4, DKT, --train_aug, 32 episodes a batch, 2
+     epochs of 10 batches) and the 600-episode `test.main`; checks the
+     caches, the kernel's 20 launches, the losses, the telemetry, the
+     checkpoints and the accuracy, and times staging, sample+augment, the
+     CLI's train batch, the epochs and the eval.
 6. Prints one JSON line of kernel results, then as its last line
    {"ok": true, "device": {...}}.
 
@@ -37,9 +46,14 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import statistics
+import struct
 import sys
+import tempfile
 import time
+import zlib
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -612,9 +626,10 @@ def drive_gp_memory_path(device) -> dict:
     return launches
 
 
-def drive_main_path(device, card: str) -> dict:
+def drive_main_path(device, card: str) -> tuple[dict, float]:
     """5 DKT meta-training steps at full width through the fused kernel.
-    Returns each kernel's launch count over those steps."""
+    Returns each kernel's launch count over those steps and the fused
+    route's train-step ms."""
     from deep_kernel_transfer_tpu_torch.methods import DKT
     from deep_kernel_transfer_tpu_torch.models import Conv4
     from deep_kernel_transfer_tpu_torch.ops.fused_mll import fused_linear_mll
@@ -672,7 +687,7 @@ def drive_main_path(device, card: str) -> dict:
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           f" GiB", flush=True)
     profile_step(lambda: model.train_step(batches[0]))
-    return launches
+    return launches, times["fused"][0]
 
 
 def profile_step(step, top: int = 15) -> None:
@@ -698,6 +713,223 @@ def profile_step(step, top: int = 15) -> None:
     for e in rows[:top]:
         print(f"  {e.self_device_time_total / 2e3:9.3f} ms/step "
               f"{e.count // 2:5d} calls/step  {e.key[:110]}", flush=True)
+
+
+# -- the CLI path ------------------------------------------------------------
+
+CLI_SPLITS = (("base", 64), ("val", 16), ("novel", 20))  # miniImagenet
+CLI_IMAGES, CLI_PX, CLI_CROP = 600, 96, 84  # 96 = int(84 * 1.15)
+CLI_ARGS = ["--dataset=miniImagenet", "--model=Conv4", "--method=DKT",
+            "--train_aug", "--episode_batch=32"]
+
+
+def class_images(c: int, n: int) -> np.ndarray:
+    """n images [n, 96, 96, 3] uint8 of class c: noise in [0, 96) and the
+    class signature, a 6x6 block 150 brighter at cell c of a 10x10 grid
+    that lies inside the 84-px centre crop."""
+    x = np.random.default_rng(1000 + c).integers(
+        0, 96, (n, CLI_PX, CLI_PX, 3), dtype=np.uint8)
+    r, col = 13 + 7 * (c // 10), 13 + 7 * (c % 10)
+    x[:, r:r + 6, col:col + 6] += 150
+    return x
+
+
+def png_bytes(img: np.ndarray) -> bytes:
+    """An 8-bit RGB PNG of img [H, W, 3] (zlib and struct only), its data
+    stored uncompressed (zlib level 0: noise does not compress)."""
+    h, w, _ = img.shape
+    raw = np.zeros((h, 1 + 3 * w), np.uint8)  # filter byte 0 on every row
+    raw[:, 1:] = img.reshape(h, 3 * w)
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data)))
+
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw.tobytes(), 0))
+            + chunk(b"IEND", b""))
+
+
+def write_cli_dataset(root: str, splits=CLI_SPLITS,
+                      n_images: int = CLI_IMAGES) -> dict:
+    """The miniImagenet layout under root/filelists/miniImagenet: PNGs and
+    base/val/novel.json, then each split's stage cache as the CLIs stage
+    it (the canvas for base, the 84-px eval crop for val and novel), keyed
+    by the port's own _stage_cache_key: the 96-px image is its own canvas,
+    and the eval transform of it (Scale to 96, CenterCrop 84) is its centre
+    crop. Returns split -> the filelist's path."""
+    from deep_kernel_transfer_tpu_torch.data.device_dataset import (
+        _stage_cache_key, _stage_cache_store)
+
+    d = os.path.join(root, "filelists", "miniImagenet")
+    os.makedirs(os.path.join(d, "images"))
+    files, first = {}, 0
+    lo = (CLI_PX - CLI_CROP) // 2
+    def write_class(split: str, c: int) -> tuple[np.ndarray, list[str]]:
+        imgs = class_images(c, n_images)
+        paths = [os.path.join(d, "images", f"{split}_{c}_{i}.png")
+                 for i in range(n_images)]
+        for img, path in zip(imgs, paths):
+            with open(path, "wb") as f:
+                f.write(png_bytes(img))
+        return imgs, paths
+
+    with ThreadPoolExecutor(8) as pool:
+        for split, n_class in splits:
+            done = list(pool.map(lambda c: write_class(split, c),
+                                 range(first, first + n_class)))
+            imgs = np.concatenate([i for i, _ in done])
+            paths = [p for _, ps in done for p in ps]
+            files[split] = os.path.join(d, f"{split}.json")
+            with open(files[split], "w") as f:
+                json.dump({"label_names": [f"c{first + c}"
+                                           for c in range(n_class)],
+                           "image_names": paths,
+                           "image_labels": [first + c for c in range(n_class)
+                                            for _ in range(n_images)]}, f)
+            canvas = split == "base"
+            host = imgs if canvas else imgs[:, lo:lo + CLI_CROP,
+                                            lo:lo + CLI_CROP]
+            _stage_cache_store(files[split], _stage_cache_key(
+                paths, CLI_CROP, canvas), CLI_CROP, canvas, host)
+            first += n_class
+    return files
+
+
+def drive_cli_path(device, card: str, step_ms: float) -> dict:
+    """The CLIs' main path at full width in a temporary working directory
+    (see the module docstring). Returns the kernel's launch count over the
+    train and test runs."""
+    from deep_kernel_transfer_tpu_torch import test, train
+    from deep_kernel_transfer_tpu_torch.data import device_dataset as dd
+    from deep_kernel_transfer_tpu_torch.data.device_aug import augment
+    from deep_kernel_transfer_tpu_torch.ops.fused_mll import fused_linear_mll
+    from deep_kernel_transfer_tpu_torch.utils.checkpoint import (
+        get_resume_file)
+
+    import importlib.util
+
+    print(f"PIL importable: {importlib.util.find_spec('PIL') is not None}",
+          flush=True)
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as root:
+        os.chdir(root)
+        try:
+            t0 = time.perf_counter()
+            files = write_cli_dataset(root)
+            print(f"CLI dataset: {len(CLI_SPLITS)} splits, "
+                  f"{sum(n for _, n in CLI_SPLITS) * CLI_IMAGES} PNGs and "
+                  f"stage caches written in {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+            torch.cuda.reset_peak_memory_stats()
+            for split, canvas in (("base", True), ("val", False),
+                                  ("novel", False)):
+                t0 = time.perf_counter()
+                ds = dd.cached_dataset(files[split], CLI_CROP, canvas=canvas,
+                                       device=device, verbose=True)
+                torch.cuda.synchronize()
+                print(f"staged {split}: {tuple(ds.images.shape)} uint8, "
+                      f"{ds.images.numel() / 2**30:.3f} GiB on the device in "
+                      f"{time.perf_counter() - t0:.2f} s, from the stage "
+                      f"cache: {ds.from_cache} [{card}]", flush=True)
+            staged = list(dd._CACHE.values())
+            if len(staged) != 3 or not all(ds.from_cache for ds in staged):
+                raise AssertionError("a split was not staged from its cache")
+
+            # each epoch ends with its <epoch>.tar: time the epochs there
+            ends, save = [], train.save_checkpoint
+
+            def timed_save(path, model, epoch=-1):
+                if not path.endswith("best_model.tar"):
+                    torch.cuda.synchronize()
+                    ends.append(time.perf_counter())
+                save(path, model, epoch)
+
+            train.save_checkpoint = timed_save
+            fused_linear_mll.launches = 0
+            t0 = time.perf_counter()
+            try:
+                model = train.main(CLI_ARGS + ["--n_train_episodes=320",
+                                               "--stop_epoch=2"])
+            finally:
+                train.save_checkpoint = save
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            epoch_s = [b - a for a, b in zip([t0] + ends, ends)]
+            t0 = time.perf_counter()
+            acc, ci = test.main(CLI_ARGS + ["--n_iter=600", "--repeat=1"])
+            eval_s = time.perf_counter() - t0
+            launches = {"fused_linear_mll": fused_linear_mll.launches}
+            print(f"CLI path: train 2 epochs of 10 batches in {train_s:.2f} s "
+                  f"(epochs with their validation and saves: "
+                  f"{', '.join(f'{v:.2f}' for v in epoch_s)} s, the first "
+                  f"with the model's set-up), 600-episode test in "
+                  f"{eval_s:.2f} s, accuracy "
+                  f"{acc:.2f}% +- {ci:.2f}%, fused_linear_mll launches "
+                  f"{launches} [{card}]", flush=True)
+            if launches["fused_linear_mll"] != 20:
+                raise AssertionError(f"want 20 launches (2 epochs x 10 "
+                                     f"batches): {launches}")
+            check_cli_outputs(get_resume_file, acc)
+            print(f"CLI path peak device memory "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+                  f"[{card}]", flush=True)
+
+            base = dd._CACHE[next(k for k in dd._CACHE if k[3])]
+            gen = base.generator(0)
+            sample_ms = cuda_ms(lambda: augment(gen, base.sample_episodes(
+                gen, MAIN_WAY, MAIN_SHOT, 16, MAIN_B), MAIN_PX), iters=10)
+            chunk = dd.make_fused_epoch(model, base, MAIN_WAY, MAIN_SHOT, 16,
+                                        MAIN_B, augment_to=MAIN_PX)
+            batch_ms = cuda_ms(lambda: chunk(gen, 1), iters=10)
+            print(f"CLI loop, B={MAIN_B} 5w5s16q at 84 px from 96-px "
+                  f"canvases: sample+augment {sample_ms:.3f} ms a batch, "
+                  f"sample+augment+train step {batch_ms:.3f} ms a batch "
+                  f"against the bare train_step's {step_ms:.3f} ms (phase 5) "
+                  f"[{card}]", flush=True)
+        finally:
+            os.chdir(cwd)
+            dd._CACHE.clear()
+    return launches
+
+
+def check_cli_outputs(get_resume_file, acc: float) -> None:
+    """The CLI run's files: finite losses and the telemetry in
+    log/metrics.jsonl, reference-layout checkpoints, the results line."""
+    ckpt = "save/checkpoints/miniImagenet/Conv4_DKT_aug_5way_5shot"
+    with open(f"{ckpt}/log/metrics.jsonl") as f:
+        records = [json.loads(line) for line in f]
+    losses = [r[k] for r in records for k in ("loss", "epoch_loss") if k in r]
+    keys = set().union(*records)
+    print(f"CLI metrics: losses {losses}, GP accuracies "
+          f"{[(r['GP_support_accuracy'], r['GP_query_accuracy']) for r in records if 'GP_query_accuracy' in r]}"
+          , flush=True)
+    if len(losses) != 4 or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"want 4 finite losses, got {losses}")
+    want = {"GP_support_accuracy", "GP_query_accuracy", "z_support/mean"}
+    if not want <= keys:
+        raise AssertionError(f"metrics.jsonl lacks {want - keys}")
+    names = sorted(os.listdir(ckpt))
+    if names != ["0.tar", "1.tar", "best_model.tar", "log"]:
+        raise AssertionError(f"checkpoints {names}")
+    if get_resume_file(ckpt) != f"{ckpt}/1.tar":
+        raise AssertionError("the latest checkpoint is not 1.tar")
+    for name in ("0.tar", "1.tar", "best_model.tar"):
+        state = torch.load(f"{ckpt}/{name}", weights_only=True)["state"]
+        for w in range(MAIN_WAY):
+            if f"model.models.{w}.covar_module.raw_outputscale" not in state:
+                raise AssertionError(f"{name} lacks way {w}'s GP")
+        if any(k.startswith("gp.") for k in state) or not all(
+                bool(torch.isfinite(v).all()) for v in state.values()):
+            raise AssertionError(f"{name} is not a finite reference layout")
+    with open("record/results.txt") as f:
+        line = f.read().splitlines()[-1]
+    print(f"record/results.txt: {line}", flush=True)
+    if "miniImagenet-Conv4-DKT-aug 5shot 5way_test" not in line:
+        raise AssertionError("no results line")
+    if not acc > 50.0:
+        raise AssertionError(f"test accuracy {acc:.2f}% is not above 50%")
 
 
 def main() -> int:
@@ -743,9 +975,11 @@ def main() -> int:
         kernels[entry["name"]] = entry
     torch.cuda.empty_cache()
 
-    # 5. the main paths: DKT meta-training, then the GP memory regime
-    launches = drive_main_path(device, card)
+    # 5. the main paths: DKT meta-training, the GP memory regime, the CLIs
+    launches, step_ms = drive_main_path(device, card)
     launches.update(drive_gp_memory_path(device))
+    torch.cuda.empty_cache()
+    launches.update(drive_cli_path(device, card, step_ms))
     for name, entry in kernels.items():
         entry["launches"] = launches[name]
 

@@ -1,0 +1,148 @@
+"""Experiment factory: dataset, image-size, epoch and method resolution.
+
+Port of deep_kernel_transfer_tpu/factory.py:26-220 (reference
+train.py:73-182, test.py:73-115) for DKT: filelist resolution with the
+cross / cross_char settings, image-size rules, default epoch schedules,
+the checkpoint-directory naming that test.py relies on, and the DKT
+method. The other methods wait for ROADMAP queue A, item 10; more than one
+device for item 12.
+"""
+from __future__ import annotations
+
+import os
+
+from . import configs
+from .methods import DKT
+from .models.backbones import model_dict
+
+
+def _fallback(path: str) -> str:
+    """Take ./filelists_tpu/<ds>/ (where the repo's prep scripts write)
+    when the reference layout ./filelists/<ds>/ is missing."""
+    if not os.path.exists(path):
+        alt = path.replace("filelists/", "filelists_tpu/", 1)
+        if os.path.exists(alt):
+            return alt
+    return path
+
+
+def resolve_data_files(params, split_for_test: str | None = None):
+    """(base_file, val_file) for training, or the one file of the test
+    split (reference train.py:73-81, save_features.py:35-49)."""
+    d = configs.data_dir
+    if split_for_test is not None:
+        split = split_for_test
+        if params.dataset == "cross":
+            if split == "base":
+                return _fallback(os.path.join(d["miniImagenet"], "all.json"))
+            return _fallback(os.path.join(d["CUB"], f"{split}.json"))
+        if params.dataset == "cross_char":
+            if split == "base":
+                return _fallback(os.path.join(d["omniglot"], "noLatin.json"))
+            return _fallback(os.path.join(d["emnist"], f"{split}.json"))
+        return _fallback(os.path.join(d[params.dataset], f"{split}.json"))
+
+    if params.dataset == "cross":
+        base_file = os.path.join(d["miniImagenet"], "all.json")
+        val_file = os.path.join(d["CUB"], "val.json")
+    elif params.dataset == "cross_char":
+        base_file = os.path.join(d["omniglot"], "noLatin.json")
+        val_file = os.path.join(d["emnist"], "val.json")
+    else:
+        base_file = os.path.join(d[params.dataset], "base.json")
+        val_file = os.path.join(d[params.dataset], "val.json")
+    return _fallback(base_file), _fallback(val_file)
+
+
+def resolve_image_size(params) -> int:
+    """28 for the character datasets, 84 for Conv trunks, 224 for ResNets
+    (reference train.py:83-89)."""
+    if "Conv" in params.model:
+        if params.dataset in ("omniglot", "cross_char"):
+            return 28
+        return 84
+    return 224
+
+
+def check_model_constraints(params) -> None:
+    """omniglot and cross_char force Conv4 -> Conv4S, without augmentation
+    (reference train.py:91-93)."""
+    if params.dataset in ("omniglot", "cross_char"):
+        if params.model not in ("Conv4", "Conv4S") or getattr(
+                params, "train_aug", False):
+            raise ValueError(
+                "omniglot only supports Conv4 without augmentation")
+        params.model = "Conv4S"
+
+
+def default_stop_epoch(params) -> int:
+    """reference train.py:97-113."""
+    if params.method in ("baseline", "baseline++"):
+        if params.dataset in ("omniglot", "cross_char"):
+            return 5
+        if params.dataset in ("CUB",):
+            return 200
+        return 400
+    if params.n_shot == 1:
+        return 600
+    if params.n_shot == 5:
+        return 400
+    return 600
+
+
+def check_devices(params) -> None:
+    """The port runs on one device; --n_devices > 1 is ROADMAP queue A,
+    item 12."""
+    n = getattr(params, "n_devices", None)
+    if n is not None and n > 1:
+        raise NotImplementedError(
+            f"--n_devices={n}: the episode-parallel trainer is not ported "
+            "yet (ROADMAP queue A, item 12)")
+
+
+def use_device_data(params, data_file: str, image_size: int,
+                    canvas: bool = False) -> bool:
+    """The --device_data tri-state: stage the split in device memory when
+    forced on, or (auto) when it fits the budget."""
+    mode = getattr(params, "device_data", "off")
+    if mode == "off":
+        return False
+    if mode == "on":
+        return True
+    from .data.device_dataset import fits_budget
+
+    return fits_budget(data_file, image_size, canvas=canvas)
+
+
+def train_n_query(params) -> int:
+    """n_query = max(1, 16 * test_n_way / train_n_way) (train.py:132-133)."""
+    return max(1, int(16 * params.test_n_way / params.train_n_way))
+
+
+def kernel_type(params) -> str:
+    kt = getattr(params, "kernel_type", None)
+    return kt if kt else configs.kernel_type
+
+
+def build_method(params, n_way: int, n_support: int, device=None):
+    """The method object (reference train.py:115-174): DKT."""
+    if params.method != "DKT":
+        raise NotImplementedError(
+            f"method '{params.method}' is not ported yet (ROADMAP queue A, "
+            "item 10)")
+    return DKT(model_dict[params.model](), n_way, n_support,
+               kernel_type=kernel_type(params),
+               feature_dtype=getattr(params, "feature_dtype", "bfloat16"),
+               device=device)
+
+
+def checkpoint_dir(params) -> str:
+    """save/checkpoints/<ds>/<model>_<method>[_aug][_Nway_Kshot]
+    (reference train.py:178-182)."""
+    path = os.path.join(configs.save_dir, "checkpoints", params.dataset,
+                        f"{params.model}_{params.method}")
+    if getattr(params, "train_aug", False):
+        path += "_aug"
+    if params.method not in ("baseline", "baseline++"):
+        path += f"_{params.train_n_way}way_{params.n_shot}shot"
+    return path

@@ -1,8 +1,10 @@
-"""Linear-family GP kernels for the ExactGP engine, as pure tensor functions.
+"""The DKT kernel zoo for the ExactGP engine, as pure tensor functions.
 
-Port of deep_kernel_transfer_tpu/gp/kernels.py for the kernel types this
-slice runs: `linear`, `cossim` and `bncossim` (reference methods/DKT.py
-:351-372). Parameterisation follows GPyTorch: every positive
+Port of deep_kernel_transfer_tpu/gp/kernels.py for the classification
+kernel types (reference methods/DKT.py:351-372): `linear`, `cossim`,
+`bncossim`, `rbf`, `matern` (nu = 2.5), `poli1` and `poli2`; the
+regression track's `spectral` waits for ROADMAP queue A, item 11.
+Parameterisation follows GPyTorch: every positive
 hyperparameter theta is stored raw with theta = softplus(raw), so a raw
 init of 0 gives theta = log 2.
 
@@ -13,15 +15,11 @@ them against the inputs' batch dimensions and returns [..., N1, N2].
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import Callable, NamedTuple
 
 import torch
 import torch.nn.functional as F
-
-# kernel types that reach the rest of the zoo in the JAX package, still to
-# port (ROADMAP queue A, item 1)
-_NOT_PORTED = ("rbf", "matern", "poli1", "poli2", "spectral")
-
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
     return F.softplus(x)
@@ -54,6 +52,25 @@ def dot_f32(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
 def _lift(p: torch.Tensor) -> torch.Tensor:
     """A batched scalar parameter [...] as [..., 1, 1] against a Gram."""
     return p[..., None, None]
+
+
+def sq_dist(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+    """Pairwise squared distances ||a||^2 + ||b||^2 - 2 a.b, [..., N1, N2],
+    clamped at 0 (JAX kernels.py:38-47)."""
+    x1n = torch.sum(x1 * x1, dim=-1)[..., :, None]
+    x2n = torch.sum(x2 * x2, dim=-1)[..., None, :]
+    return torch.clamp(x1n + x2n - 2.0 * dot_f32(x1, x2), min=0.0)
+
+
+def dist(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+    """Pairwise distances with the sqrt clamped at 1e-30, so the gradient
+    stays finite on the diagonal (JAX kernels.py:71-75)."""
+    return torch.sqrt(torch.clamp(sq_dist(x1, x2), min=1e-30))
+
+
+def _ones_diag(params, x):
+    """k(x, x) = 1 of a stationary kernel, [..., N]."""
+    return torch.ones(x.shape[:-1], dtype=x.dtype, device=x.device)
 
 
 class Kernel(NamedTuple):
@@ -97,6 +114,60 @@ def linear_kernel(train_variance: bool = True) -> Kernel:
     return Kernel(init, apply, diag)
 
 
+def rbf_kernel() -> Kernel:
+    """k(a, b) = exp(-0.5 ||(a - b) / l||^2), one lengthscale (gpytorch
+    RBFKernel; JAX kernels.py:98-110)."""
+
+    def init(device=None):
+        return {"raw_lengthscale": torch.zeros((), device=device)}
+
+    def apply(params, x1, x2):
+        ls = _lift(softplus(params["raw_lengthscale"]))
+        return torch.exp(-0.5 * sq_dist(x1 / ls, x2 / ls))
+
+    return Kernel(init, apply, _ones_diag)
+
+
+def matern_kernel(nu: float = 2.5) -> Kernel:
+    """Matern kernel with nu in {0.5, 1.5, 2.5} (gpytorch MaternKernel,
+    DKT uses 2.5; JAX kernels.py:113-133)."""
+    if nu not in (0.5, 1.5, 2.5):
+        raise ValueError(f"unsupported matern nu={nu}")
+
+    def init(device=None):
+        return {"raw_lengthscale": torch.zeros((), device=device)}
+
+    def apply(params, x1, x2):
+        ls = _lift(softplus(params["raw_lengthscale"]))
+        d = dist(x1 / ls, x2 / ls)
+        if nu == 0.5:
+            return torch.exp(-d)
+        if nu == 1.5:
+            c = math.sqrt(3.0) * d
+            return (1.0 + c) * torch.exp(-c)
+        c = math.sqrt(5.0) * d
+        return (1.0 + c + c * c / 3.0) * torch.exp(-c)
+
+    return Kernel(init, apply, _ones_diag)
+
+
+def polynomial_kernel(power: int) -> Kernel:
+    """k(a, b) = (a.b + c)^power (gpytorch PolynomialKernel, poli1/poli2;
+    JAX kernels.py:173-195)."""
+
+    def init(device=None):
+        return {"raw_offset": torch.zeros((), device=device)}
+
+    def apply(params, x1, x2):
+        return (dot_f32(x1, x2) + _lift(softplus(params["raw_offset"]))) ** power
+
+    def diag(params, x):
+        offset = softplus(params["raw_offset"])[..., None]
+        return (torch.sum(x * x, dim=-1) + offset) ** power
+
+    return Kernel(init, apply, diag)
+
+
 def scale(base: Kernel) -> Kernel:
     """gpytorch ScaleKernel: k = outputscale * base(a, b)."""
 
@@ -117,15 +188,23 @@ def scale(base: Kernel) -> Kernel:
 
 def make_kernel(kind: str) -> Kernel:
     """The covariance module for a reference `kernel_type` string
-    (reference methods/DKT.py:351-372), linear family only."""
+    (reference methods/DKT.py:351-372; JAX kernels.py:311-334)."""
     kind_l = kind.lower()
     if kind_l == "linear":
         return scale(linear_kernel(train_variance=True))
+    if kind_l == "rbf":
+        return scale(rbf_kernel())
+    if kind_l == "matern":
+        return scale(matern_kernel(2.5))
+    if kind_l == "poli1":
+        return scale(polynomial_kernel(1))
+    if kind_l == "poli2":
+        return scale(polynomial_kernel(2))
     if kind_l in ("cossim", "bncossim"):
         return scale(linear_kernel(train_variance=False))
-    if kind_l in _NOT_PORTED:
+    if kind_l == "spectral":
         raise NotImplementedError(
-            f"kernel '{kind}' is not ported yet (ROADMAP queue A, item 1)")
+            "kernel 'spectral' is not ported yet (ROADMAP queue A, item 11)")
     raise ValueError(f"[ERROR] the kernel '{kind}' is not supported!")
 
 

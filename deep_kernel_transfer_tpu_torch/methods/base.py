@@ -1,10 +1,11 @@
 """Episodic method scaffolding: episode helpers, the trunk's mixed-precision
 law, BatchNorm running-average merge and the training-step body.
 
-Port of deep_kernel_transfer_tpu/methods/base.py:27-138.
+Port of deep_kernel_transfer_tpu/methods/base.py:27-138, with `ci95`.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..models.backbones import preprocess_input
@@ -26,6 +27,13 @@ def one_vs_rest_targets(n_way: int, k: int, device=None) -> torch.Tensor:
     labels = episode_labels(n_way, k, device)
     onehot = (labels[None, :] == torch.arange(n_way, device=device)[:, None])
     return 2.0 * onehot.to(torch.float32) - 1.0
+
+
+def ci95(acc_per_episode) -> float:
+    """Half-width 1.96 std / sqrt(n) of the accuracy's 95% interval
+    (reference test.py:174; JAX methods/base.py:47-52)."""
+    a = np.asarray(acc_per_episode)
+    return float(1.96 * a.std() / np.sqrt(len(a)))
 
 
 def apply_trunk(module, x: torch.Tensor, train: bool, dtype=None,

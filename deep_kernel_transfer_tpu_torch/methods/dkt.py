@@ -185,10 +185,41 @@ class DKT(nn.Module):
 
     @torch.no_grad()
     def _hyper_metrics(self) -> dict:
-        gp = self.gp.tree()
-        return {"outputscale": torch.mean(
-                    softplus(gp["kernel"]["raw_outputscale"])),
-                "noise": torch.tensor(self.spec.likelihood.fixed_noise)}
+        """Mean outputscale, lengthscale (rbf, matern) and noise (JAX
+        dkt.py:247-260)."""
+        kernel = self.gp.tree()["kernel"]
+        out = {"outputscale": torch.mean(softplus(kernel["raw_outputscale"]))}
+        if "raw_lengthscale" in kernel["base"]:
+            out["lengthscale"] = torch.mean(
+                softplus(kernel["base"]["raw_lengthscale"]))
+        out["noise"] = torch.tensor(self.spec.likelihood.fixed_noise)
+        return out
+
+    @torch.no_grad()
+    def train_telemetry(self, xb: torch.Tensor) -> dict:
+        """The training telemetry of every print_freq batches (reference
+        methods/DKT.py:167-196; JAX dkt.py:262-293): support and query
+        accuracy in percent, averaged over the B episodes of xb, with each
+        episode's GP conditioned on its support and query points under
+        eval-mode BatchNorm (one batched posterior), and the first
+        episode's support features as `z_support` [n_way*S, D]."""
+        xb = xb.to(self.device)
+        b, n_way, n_total = xb.shape[0], xb.shape[1], xb.shape[2]
+        n = n_way * n_total
+        z, _ = self._features(xb.reshape((b * n,) + tuple(xb.shape[3:])))
+        z = z.reshape(b, n, z.shape[-1])
+        targets = one_vs_rest_targets(n_way, n_total, self.device)
+        post = self.spec.posterior(self._gp_params_for(n_way), z[:, None],
+                                   targets, z[:, None])
+        pred = torch.argmax(torch.sigmoid(post.mean), dim=1)  # [B, N]
+        hit = (pred == episode_labels(n_way, n_total, self.device)).reshape(
+            b, n_way, n_total).to(torch.float32)
+        s = self.n_support
+        z_support = z[0].reshape(n_way, n_total, -1)[:, :s].reshape(
+            n_way * s, -1)
+        return {"GP_support_accuracy": hit[..., :s].mean() * 100.0,
+                "GP_query_accuracy": hit[..., s:].mean() * 100.0,
+                "z_support": z_support}
 
     # -- prediction --------------------------------------------------------
 

@@ -1,8 +1,9 @@
-"""Conv4 trunk with per-episode BatchNorm.
+"""Conv4 and Conv4S trunks with per-episode BatchNorm.
 
 Port of deep_kernel_transfer_tpu/models/backbones.py (`preprocess_input`,
-the fan-in init, `EpisodicBatchNorm`, `ConvBlock`, `ConvNet`, `Conv4`),
-which rebuilds reference backbone.py:105-132, 250-268.
+the fan-in init, `EpisodicBatchNorm`, `ConvBlock`, `ConvNet`, `ConvNetS`,
+`Conv4`, `Conv4S`, `model_dict`), which rebuilds reference
+backbone.py:105-132, 250-310.
 
 Inputs keep the JAX layout, images [N, H, W, C] (uint8 or already
 normalised float); inside the trunk activations are NCHW. The flattened
@@ -150,12 +151,18 @@ class Flatten(nn.Module):
 class ConvNet(nn.Module):
     """Conv4/Conv6 trunk (reference backbone.py:250-268): `depth` blocks of
     64 channels, max-pool in the first four. Input [N, H, W, C]; output
-    [N, 64*h*w] (84x84 -> 5x5x64 = 1600)."""
+    [N, 64*h*w] (84x84 -> 5x5x64 = 1600).
 
-    def __init__(self, depth: int):
+    first_channel=True is the omniglot trunk ConvNetS (reference
+    backbone.py:287-310; JAX backbones.py:220-236): only the first input
+    channel goes in, 28x28 -> 1x1x64 = 64."""
+
+    def __init__(self, depth: int, first_channel: bool = False):
         super().__init__()
         self.depth = depth
-        blocks = [ConvBlock(3 if i == 0 else 64, 64, pool=(i < 4))
+        self.first_channel = first_channel
+        in_dim = 1 if first_channel else 3
+        blocks = [ConvBlock(in_dim if i == 0 else 64, 64, pool=(i < 4))
                   for i in range(depth)]
         self.trunk = nn.ModuleList(blocks + [Flatten()])
         self.reset_parameters()
@@ -181,7 +188,10 @@ class ConvNet(nn.Module):
 
     def forward(self, x, train=True, ep_groups=1, stats=None):
         """Preprocess NHWC images, go to NCHW, run every layer of `trunk`."""
-        x = preprocess_input(x).permute(0, 3, 1, 2)
+        x = preprocess_input(x)
+        if self.first_channel:
+            x = x[..., :1]
+        x = x.permute(0, 3, 1, 2)
         for layer in self.trunk:
             x = layer(x, train, ep_groups, stats)
         return x
@@ -189,3 +199,19 @@ class ConvNet(nn.Module):
 
 def Conv4() -> ConvNet:
     return ConvNet(depth=4)
+
+
+def Conv4S() -> ConvNet:
+    return ConvNet(depth=4, first_channel=True)
+
+
+class _ModelDict(dict):
+    """The CLI's `--model` names (JAX backbones.py:476); a name of the JAX
+    zoo not ported yet raises."""
+
+    def __missing__(self, name):
+        raise NotImplementedError(
+            f"backbone '{name}' is not ported yet (ROADMAP queue A, item 9)")
+
+
+model_dict = _ModelDict(Conv4=Conv4, Conv4S=Conv4S)

@@ -1,0 +1,169 @@
+"""Checkpoints in the reference's torch layout, with its naming and discovery.
+
+Port of deep_kernel_transfer_tpu/utils/checkpoint.py. Files are
+<ckpt_dir>/{best_model.tar, <epoch>.tar} (reference train.py:57-65) and
+are found as the reference finds them (io_utils.py:66-86; JAX
+checkpoint.py:96-136).
+
+A file is `torch.save({'epoch': e, 'state': sd})` with `sd` in the
+reference DKT's state_dict layout (reference methods/DKT.py:337-378):
+the trunk's keys as the port has them (feature.trunk.{i}.C.*,
+feature.trunk.{i}.BN.*, feature.trunk.bn_out.*), and each way's GP as
+gpytorch names it, model.models.{w}.mean_module.constant,
+model.models.{w}.covar_module.raw_outputscale and
+model.models.{w}.covar_module.base_kernel.raw_{variance|lengthscale|offset}.
+That is the layout the JAX package imports (utils/torch_import.py
+:327-357), so its test.py evaluates a checkpoint of the port's train.
+
+`load_checkpoint` reads that layout, and also the JAX package's own npz
+checkpoints (leaves keyed by their keystr path, JAX checkpoint.py:28-41),
+parsed without JAX and loaded through utils/convert.dkt_params_from_jax.
+"""
+from __future__ import annotations
+
+import glob
+import os
+import re
+import sys
+import zipfile
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .convert import dkt_params_from_jax
+
+# gpytorch's name and shape of each base-kernel parameter
+_BASE_SHAPES = {"raw_variance": (1,), "raw_lengthscale": (1, 1),
+                "raw_offset": ()}
+
+
+def _gp_key(w: int, leaf: str) -> str:
+    p = f"model.models.{w}."
+    if leaf == "mean.constant":
+        return p + "mean_module.constant"
+    if leaf == "kernel.raw_outputscale":
+        return p + "covar_module.raw_outputscale"
+    return p + "covar_module.base_kernel." + leaf.removeprefix("kernel.base.")
+
+
+def _reference_state(model) -> dict[str, torch.Tensor]:
+    """The reference layout of a DKT's state_dict, on the CPU."""
+    out = {}
+    for name, value in model.state_dict().items():
+        value = value.detach().cpu()
+        if name.startswith("feature."):
+            out[name] = value.clone()
+            continue
+        leaf = name.removeprefix("gp.")
+        shape = (1,) if leaf == "mean.constant" else _BASE_SHAPES.get(
+            leaf.removeprefix("kernel.base."), ())
+        for w in range(value.shape[0]):
+            out[_gp_key(w, leaf)] = value[w].reshape(shape).clone()
+    return out
+
+
+def save_checkpoint(path: str, model, epoch: int = -1) -> None:
+    """torch.save({'epoch', 'state'}) of `model` in the reference layout."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    torch.save({"epoch": int(epoch), "state": _reference_state(model)}, path)
+
+
+def _is_torch_checkpoint(path: str) -> bool:
+    """A torch.save archive holds data.pkl; the JAX package's npz holds
+    __epoch__.npy."""
+    with zipfile.ZipFile(path) as zf:
+        return any(n.endswith("data.pkl") for n in zf.namelist())
+
+
+def _load_reference(path: str, model) -> int:
+    blob = torch.load(path, map_location="cpu", weights_only=True)
+    state = blob["state"]
+    sd = {}
+    for name, value in model.state_dict().items():
+        if name.startswith("feature."):
+            sd[name] = state[name]
+            continue
+        leaf = name.removeprefix("gp.")
+        ways = []
+        for w in range(value.shape[0]):
+            key = _gp_key(w, leaf)
+            if leaf == "mean.constant" and key not in state:
+                key = key.replace(".constant", ".raw_constant")
+            ways.append(state[key].reshape(()))
+        sd[name] = torch.stack(ways)
+    model.load_state_dict({k: v.to(model.device) for k, v in sd.items()},
+                          strict=True)
+    return int(blob.get("epoch", -1))
+
+
+_KEYSTR = re.compile(r"\['([^']*)'\]")
+
+
+def _npz_tree(z) -> dict:
+    """The nested dict of a JAX npz checkpoint: each leaf's keystr path
+    ['a']['b']... back into dict keys."""
+    tree: dict = {}
+    for key in z.files:
+        if key == "__epoch__":
+            continue
+        parts = _KEYSTR.findall(key)
+        if "".join(f"['{p}']" for p in parts) != key:
+            raise ValueError(f"unexpected leaf path {key!r}")
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = z[key]
+    return tree
+
+
+def load_checkpoint(path: str, model, image_size: int) -> int:
+    """Load a reference-layout torch checkpoint, or a JAX npz checkpoint of
+    a DKT, into `model` (init-ed for the same backbone, kernel type and
+    image size). Returns the checkpoint's epoch."""
+    if _is_torch_checkpoint(path):
+        return _load_reference(path, model)
+    with np.load(path, allow_pickle=False) as z:
+        epoch = int(z["__epoch__"])
+        tree = _npz_tree(z)
+    dkt_params_from_jax(tree, model, image_size)
+    return epoch
+
+
+# -- discovery (reference io_utils.py:66-86) --------------------------------
+
+
+def get_assigned_file(checkpoint_dir: str, num: int) -> str:
+    return os.path.join(checkpoint_dir, f"{num}.tar")
+
+
+def get_resume_file(checkpoint_dir: str) -> Optional[str]:
+    filelist = glob.glob(os.path.join(checkpoint_dir, "*.tar"))
+    filelist = [x for x in filelist if os.path.basename(x) != "best_model.tar"]
+    if not filelist:
+        return None
+    epochs = [int(os.path.splitext(os.path.basename(x))[0]) for x in filelist]
+    return os.path.join(checkpoint_dir, f"{max(epochs)}.tar")
+
+
+def get_best_file(checkpoint_dir: str) -> Optional[str]:
+    best = os.path.join(checkpoint_dir, "best_model.tar")
+    if os.path.isfile(best):
+        return best
+    return get_resume_file(checkpoint_dir)
+
+
+def resolve_checkpoint_file(checkpoint_dir: str,
+                            save_iter: int = -1) -> Optional[str]:
+    """test.py's checkpoint (reference test.py:95-100): the --save_iter
+    epoch's file, else best_model.tar or the latest epoch. Warns on stderr
+    when there is none: the run then evaluates freshly initialised
+    weights, as the reference does."""
+    if save_iter != -1:
+        f = get_assigned_file(checkpoint_dir, save_iter)
+    else:
+        f = get_best_file(checkpoint_dir)
+    if f is None:
+        print(f"[WARNING] no checkpoint found in {checkpoint_dir} — "
+              "evaluating RANDOMLY-INITIALISED weights", file=sys.stderr)
+    return f
