@@ -12,9 +12,11 @@
    idle gaps between launches.
 4. Holds each kernel against its plain torch version on the card at the
    main paths' shapes, and times kernel, plain version and the stock
-   library call with CUDA events, in turns: the fused MLL, and the three
-   large-support-set Cholesky kernels (blocked, left-looking, fused Gram
-   with its tiled form).
+   library call with CUDA events, in turns: the fused MLL (with shared
+   and with per-episode GP parameters, the latter at the digits
+   adaptation shape and the main one), and the three large-support-set
+   Cholesky kernels (blocked, left-looking, fused Gram with its tiled
+   form).
 5. Drives the main paths, each with the launch counts set to 0 just before
    and read just after:
    - DKT meta-training (Conv4, bncossim, 5-way 5-shot 15-query, 84x84x3
@@ -34,7 +36,15 @@
      epochs of 10 batches) and the 600-episode `test.main`; checks the
      caches, the kernel's 20 launches, the losses, the telemetry, the
      checkpoints and the accuracy, and times staging, sample+augment, the
-     CLI's train batch, the epochs and the eval.
+     CLI's train batch, the epochs and the eval;
+   - DKT's test-time heads on the committed digits (28-px JPEGs written
+     in a temporary directory): 2 epochs of `train.main`, then
+     `test.main` plain, --laplace and --adaptation (600 episodes each)
+     and `test_uncertainty.main`; checks the adaptation's 100 fused-MLL
+     launches for each episode batch, the accuracies and the ECEs, and
+     prints each head's wall time;
+   then the exact GP's Woodbury route against its dense route at N=4096,
+   D=256: agreement, ms and peak memory of each.
 6. Prints one JSON line of kernel results, then as its last line
    {"ok": true, "device": {...}}.
 
@@ -103,9 +113,12 @@ def rel_err(a, b) -> float:
     return float((a - b).abs().max() / (b.abs().max() + 1e-8))
 
 
-def mll_inputs(b: int, n: int, d: int, w: int, device):
+def mll_inputs(b: int, n: int, d: int, w: int, device,
+               per_episode: bool = False):
     """bncossim-like unit-norm features and one-vs-rest diffs offset by a
-    non-zero constant mean."""
+    non-zero constant mean; shared scales [W] and diffs [W, N], or with
+    per_episode each episode's own, scales [B, W] and diffs [B, W, N], as
+    test-time adaptation gives them."""
     rng = np.random.RandomState(n)
     z = rng.randn(b, n, d).astype(np.float32)
     z /= np.linalg.norm(z, axis=-1, keepdims=True)
@@ -113,6 +126,9 @@ def mll_inputs(b: int, n: int, d: int, w: int, device):
     diffs = np.where(labels[None, :] == np.arange(w)[:, None], 1.0, -1.0)
     diffs = (diffs - 0.13).astype(np.float32)
     scales = np.linspace(0.4, 1.5, w).astype(np.float32)
+    if per_episode:
+        scales = (scales * rng.uniform(0.5, 2.0, (b, w))).astype(np.float32)
+        diffs = (diffs - rng.uniform(-0.3, 0.3, (b, w, 1))).astype(np.float32)
     return (torch.from_numpy(z).to(device), torch.from_numpy(diffs).to(device),
             torch.from_numpy(scales).to(device))
 
@@ -122,10 +138,10 @@ def library_mll(z, diffs, scales, noise):
     Cholesky, cholesky_solve): the yardstick, never used by the port."""
     n = z.shape[1]
     g = torch.matmul(z, z.transpose(-1, -2))
-    k = scales[:, None, None] * g[:, None] + (noise + 1e-6) * torch.eye(
+    k = scales[..., None, None] * g[:, None] + (noise + 1e-6) * torch.eye(
         n, device=z.device)
     chol = torch.linalg.cholesky(k)
-    rhs = diffs[None, :, :, None].expand(z.shape[0], -1, -1, -1)
+    rhs = diffs[..., None].expand(z.shape[0], -1, -1, -1)
     alpha = torch.cholesky_solve(rhs, chol)
     quad = (rhs * alpha).sum((-1, -2))
     logdet = 2 * torch.log(torch.diagonal(chol, dim1=-2, dim2=-1)).sum(-1)
@@ -141,14 +157,17 @@ def bound_ms(flops: float, nbytes: float,
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def fused_mll_bound_ms(b: int, n: int, d: int, w: int) -> tuple[float, str]:
+def fused_mll_bound_ms(b: int, n: int, d: int, w: int,
+                       per_episode: bool = False) -> tuple[float, str]:
     """The Gram's lower triangle with its diagonal (B·N(N+1)·D; G is
     symmetric and the factor reads no more) + Cholesky and explicit inverse
     (2N³/3) + the two products with the inverse (2N²) per (episode, way) in
-    f32; Z, diffs, scales read once, mll, L⁻¹, alpha and G written once."""
+    f32; Z, diffs, scales (shared, or each episode's own) read once, mll,
+    L⁻¹, alpha and G written once."""
     flops = (1.0 * b * n * (n + 1) * d
              + b * w * (2.0 * n ** 3 / 3.0 + 2.0 * n * n))
-    nbytes = 4.0 * (b * n * d + w * n + w + b * w + b * w * n * n + b * w * n
+    params = (b if per_episode else 1) * (w * n + w)
+    nbytes = 4.0 * (b * n * d + params + b * w + b * w * n * n + b * w * n
                     + b * n * n)
     return bound_ms(flops, nbytes)
 
@@ -171,14 +190,15 @@ def fused_gram_bound_ms(b: int, n: int, d: int, tiled: bool = False,
                     4.0 * (b * n * d + b * out), rate)
 
 
-def fused_mll_errors(b: int, n: int, d: int, w: int, device) -> dict:
+def fused_mll_errors(b: int, n: int, d: int, w: int, device,
+                     per_episode: bool = False) -> dict:
     """The fused-MLL kernel (one launch) against its plain version on the
     same inputs: mll (absolute), the residuals L⁻¹, alpha and G, and the
     gradients in z, diffs and scales through the shared backward (relative
     to each one's largest entry)."""
     from deep_kernel_transfer_tpu_torch.ops import fused_mll as fm
 
-    z, diffs, scales = mll_inputs(b, n, d, w, device)
+    z, diffs, scales = mll_inputs(b, n, d, w, device, per_episode)
     got = launched_once(fm.fused_linear_mll, lambda: fm._forward_cuda(
         z, diffs, scales, NOISE, 1e-6))
     want = fm._forward_plain(z, diffs, scales, NOISE, 1e-6)
@@ -232,6 +252,68 @@ def check_fused_mll(device) -> dict:
         "deep_kernel_transfer_tpu/ops/pallas/fused_mll.py:165", fwd_err,
         times, fused_mll_bound_ms(MAIN_B, n, MAIN_D, MAIN_WAY),
         f"B={MAIN_B} N={n} D={MAIN_D} W={MAIN_WAY}")
+
+
+ADAPT_SHAPE = (32, 25, 64, 5)  # B, N, D, W: digits 5-way 5-shot supports
+
+
+def check_fused_mll_per_episode(device) -> None:
+    """Each episode's own scales [B, W] and diffs [B, W, N] (test-time
+    adaptation), kernel against plain version with check_fused_mll's
+    limits at the digits adaptation shape and at the main path's N and D;
+    and the shared form [W], [W, N] against the per-episode form with
+    every episode's rows equal, which must give the same mll, L^-1 and
+    alpha bit for bit (the same kernels, the same arithmetic). Times
+    kernel, plain version and library call at the adaptation shape."""
+    from deep_kernel_transfer_tpu_torch.ops import fused_mll as fm
+
+    main_n = MAIN_WAY * (MAIN_SHOT + MAIN_QUERY)
+    for b, n, d, w in (ADAPT_SHAPE, (MAIN_B, main_n, MAIN_D, MAIN_WAY)):
+        check(f"fused_mll per-episode params B={b} N={n} D={d} W={w}",
+              fused_mll_errors(b, n, d, w, device, per_episode=True),
+              FUSED_MLL_LIMITS)
+        z, diffs, scales = mll_inputs(b, n, d, w, device)
+        shared = fm._forward_cuda(z, diffs, scales, NOISE, 1e-6)
+        repeated = fm._forward_cuda(z, diffs.expand(b, -1, -1),
+                                    scales.expand(b, -1), NOISE, 1e-6)
+        same = [torch.equal(x, y) for x, y in zip(shared[:3], repeated[:3])]
+        print(f"fused_mll B={b} N={n}: shared form bit-equal to repeated "
+              f"per-episode rows (mll, L^-1, alpha): {same}", flush=True)
+        if not all(same):
+            raise AssertionError("the shared and per-episode forms differ")
+    b, n, d, w = ADAPT_SHAPE
+    z, diffs, scales = mll_inputs(b, n, d, w, device, per_episode=True)
+    times = ms_in_turns({
+        "kernel": lambda: fm.fused_linear_mll(z, diffs, scales, n, NOISE),
+        "plain": lambda: fm.fused_linear_mll_plain(z, diffs, scales, n,
+                                                   NOISE),
+        "library": lambda: library_mll(z, diffs, scales, NOISE)})
+    bound = fused_mll_bound_ms(b, n, d, w, per_episode=True)
+    print(f"fused_linear_mll per-episode B={b} N={n} D={d} W={w}, median "
+          f"(min-max) of turns: " + ", ".join(
+              f"{k} {v[0]:.4f} ({v[1]:.4f}-{v[2]:.4f}) ms"
+              for k, v in times.items())
+          + f", bound {bound[0]:.6f} ms ({bound[1]})", flush=True)
+    # one adaptation step's MLL, forward and backward in the episodes' own
+    # parameters: host wall time a step against the device's kernel time
+    args = [t.clone().requires_grad_(True) for t in (diffs, scales)]
+
+    def step():
+        mll = fm.fused_linear_mll(z, *args, n, NOISE)
+        return torch.autograd.grad(-mll.sum(), args)
+
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / 20 * 1e3
+    dev_ms = print_device_table(
+        f"fused_linear_mll per-episode forward+backward B={b} N={n} D={d} "
+        f"W={w}", profiled(step))
+    print(f"adaptation-step MLL B={b} N={n}: host wall {wall_ms:.4f} ms a "
+          f"step against {dev_ms:.4f} ms of kernel time", flush=True)
 
 
 def spd_matrix(b: int, n: int, device) -> torch.Tensor:
@@ -932,6 +1014,128 @@ def check_cli_outputs(get_resume_file, acc: float) -> None:
         raise AssertionError(f"test accuracy {acc:.2f}% is not above 50%")
 
 
+# -- the test-time heads on real digits ---------------------------------------
+
+HEADS_ARGS = ["--dataset=omniglot", "--model=Conv4", "--method=DKT",
+              "--train_n_way=5", "--test_n_way=5", "--n_shot=5", "--seed=1"]
+HEADS_EPISODES, HEADS_BATCH, ADAPT_STEPS = 600, 32, 100
+
+
+def drive_heads_path(device, card: str) -> dict:
+    """DKT's test-time heads through the CLIs on the committed digits
+    (deep_kernel_transfer_tpu_torch/benchmarks/digits.npz), in a temporary
+    working directory: the digits_real filelists (28-px JPEGs), 2 epochs of
+    `train.main`, then `test.main` plain, --laplace and --adaptation (600
+    episodes, 32 a batch, one repeat each) and `test_uncertainty.main` at
+    --n_iter 100 and --repeat 1. Checks that the adaptation run launched
+    the fused MLL 100 times for each episode batch, that every accuracy
+    beats 35% (chance is 20%) and that the ECEs are finite and in [0, 1].
+    Returns the fused MLL's launches over the phase."""
+    from deep_kernel_transfer_tpu_torch import test, test_uncertainty, train
+    from deep_kernel_transfer_tpu_torch.benchmarks.digits_real import (
+        make_digits_filelists)
+    from deep_kernel_transfer_tpu_torch.data import device_dataset as dd
+    from deep_kernel_transfer_tpu_torch.ops.fused_mll import fused_linear_mll
+
+    test_args = HEADS_ARGS + [f"--n_iter={HEADS_EPISODES}", "--repeat=1",
+                              f"--episode_batch={HEADS_BATCH}"]
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as root:
+        try:
+            t0 = time.perf_counter()
+            make_digits_filelists(root)
+            os.chdir(root)
+            print(f"heads phase: digits filelists written in "
+                  f"{time.perf_counter() - t0:.2f} s", flush=True)
+            fused_linear_mll.launches = 0
+            t0 = time.perf_counter()
+            train.main(HEADS_ARGS + ["--stop_epoch=2"])
+            torch.cuda.synchronize()
+            wall = {"train 2 epochs": time.perf_counter() - t0}
+            accs = {}
+            for head, flags in (("plain", []), ("laplace", ["--laplace"]),
+                                ("adaptation", ["--adaptation"])):
+                before = fused_linear_mll.launches
+                t0 = time.perf_counter()
+                accs[head] = test.main(test_args + flags)[0]
+                wall[head] = time.perf_counter() - t0
+                launched = fused_linear_mll.launches - before
+                print(f"heads phase: test {head}: accuracy {accs[head]:.2f}% "
+                      f"in {wall[head]:.2f} s, fused_linear_mll launches "
+                      f"{launched} [{card}]", flush=True)
+                if head == "adaptation":
+                    want = ADAPT_STEPS * -(-HEADS_EPISODES // HEADS_BATCH)
+                    if launched != want:
+                        raise AssertionError(
+                            f"adaptation launched the fused MLL {launched} "
+                            f"times, want {want} (100 a batch)")
+            t0 = time.perf_counter()
+            cal = test_uncertainty.main(HEADS_ARGS + [
+                "--n_iter=100", "--repeat=1", f"--episode_batch={HEADS_BATCH}"])
+            wall["test_uncertainty"] = time.perf_counter() - t0
+            total = fused_linear_mll.launches
+        finally:
+            os.chdir(cwd)
+            dd._CACHE.clear()
+    print(f"heads phase: wall s {wall}, calibration {cal}, fused_linear_mll "
+          f"launches {total} [{card}]", flush=True)
+    if not all(a > 35.0 for a in accs.values()):
+        raise AssertionError(f"a head is not above 35%: {accs}")
+    for k in ("ece_raw", "ece_cal"):
+        if not (math.isfinite(cal[k]) and 0.0 <= cal[k] <= 1.0):
+            raise AssertionError(f"{k} = {cal[k]} is not in [0, 1]")
+    return {"fused_linear_mll": total}
+
+
+WOODBURY_N, WOODBURY_D, WOODBURY_M = 4096, 256, 1024
+
+
+def drive_woodbury_path(device, card: str) -> None:
+    """The exact GP's Woodbury route against its dense route on the card:
+    ExactGP.mll and .posterior with the bncossim kernel at N=4096, D=256
+    (1024 queries), routed (2D <= N) and with force_dense=True. Holds the
+    mll to 1e-4 relative and the posterior mean to 1e-4 absolute, and
+    prints each route's ms and peak device memory."""
+    from deep_kernel_transfer_tpu_torch.gp import ExactGP, GaussianLikelihood
+    from deep_kernel_transfer_tpu_torch.gp.kernels import make_kernel
+
+    n, d, m = WOODBURY_N, WOODBURY_D, WOODBURY_M
+    x = unit_rows(1, n + m, d, device, seed=7)[0]
+    x_train, x_query = x[:n], x[n:]
+    y = torch.from_numpy(np.where(np.random.RandomState(7).rand(n) < 0.2,
+                                  1.0, -1.0).astype(np.float32)).to(device)
+    routes = {}
+    for name, dense in (("woodbury", False), ("dense", True)):
+        spec = ExactGP(make_kernel("bncossim"),
+                       GaussianLikelihood(trainable=False, fixed_noise=NOISE),
+                       assume_pd=True, force_dense=dense)
+        params = spec.init(device=device)
+        if spec._use_low_rank(params, x_train) == dense:
+            raise AssertionError(f"{name} route not taken")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        mll = spec.mll(params, x_train, y)
+        post = spec.posterior(params, x_train, y, x_query)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        ms = ms_in_turns({
+            "mll": lambda: spec.mll(params, x_train, y),
+            "posterior": lambda: spec.posterior(params, x_train, y, x_query)},
+            rounds=3, iters=5, warmup=2)
+        routes[name] = (mll, post.mean, ms, peak)
+        print(f"Woodbury phase, {name} route at N={n} D={d} M={m}: mll "
+              f"{float(mll)!r}, mll {ms['mll'][0]:.3f} ms, posterior "
+              f"{ms['posterior'][0]:.3f} ms (medians of 3 turns), peak "
+              f"{peak:.4f} GiB above the inputs [{card}]", flush=True)
+    (mll_w, mean_w, _, _), (mll_d, mean_d, _, _) = (routes["woodbury"],
+                                                    routes["dense"])
+    check(f"Woodbury vs dense route N={n} D={d}",
+          {"mll rel": float((mll_w - mll_d).abs() / mll_d.abs()),
+           "posterior mean abs": float((mean_w - mean_d).abs().max())},
+          {"mll rel": 1e-4, "posterior mean abs": 1e-4})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -968,6 +1172,7 @@ def main() -> int:
     # 4. kernels against their plain versions
     kernels = {"fused_linear_mll": check_fused_mll(device)}
     check_ragged_shape(device)
+    check_fused_mll_per_episode(device)
     for check_kernel in (check_blocked_cholesky, check_hbm_cholesky,
                          check_fused_gram_cholesky,
                          check_fused_gram_cholesky_tiled):
@@ -975,11 +1180,18 @@ def main() -> int:
         kernels[entry["name"]] = entry
     torch.cuda.empty_cache()
 
-    # 5. the main paths: DKT meta-training, the GP memory regime, the CLIs
+    # 5. the main paths: DKT meta-training, the GP memory regime, the CLIs,
+    # the test-time heads on the digits; then the exact GP's Woodbury route.
+    # A kernel's launches are summed over the paths, each counted from 0.
     launches, step_ms = drive_main_path(device, card)
-    launches.update(drive_gp_memory_path(device))
-    torch.cuda.empty_cache()
-    launches.update(drive_cli_path(device, card, step_ms))
+    paths = [lambda: drive_gp_memory_path(device),
+             lambda: drive_cli_path(device, card, step_ms),
+             lambda: drive_heads_path(device, card)]
+    for path in paths:
+        torch.cuda.empty_cache()
+        for name, count in path().items():
+            launches[name] = launches.get(name, 0) + count
+    drive_woodbury_path(device, card)
     for name, entry in kernels.items():
         entry["launches"] = launches[name]
 

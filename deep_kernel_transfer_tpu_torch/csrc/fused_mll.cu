@@ -9,6 +9,9 @@
 //   K_w    = s_w G + (noise + jitter) I, padded to M x M with an identity block
 //   L      = chol(K_w),  X = L^-1                       (explicit inverse)
 //   y      = X diff_w,   alpha = X^T y                  (products)
+// s_w and diff_w are shared by the batch (training) or the episode's own
+// (test-time adaptation): the kernel reads them through an episode stride
+// that is 0 for the shared form, so both forms run the same arithmetic.
 //   mll    = -0.5 (|y|^2 + 2 sum_{i<N} log L_ii + N log 2pi) / N
 // The identity block adds exactly nothing: its rows of L and X are zero left
 // of the diagonal, its entries of diff are 0, and the log sum stops at N.
@@ -57,6 +60,8 @@
 // CTA alone, and 1.5 times that where two CTAs share an SM; and the Gram's
 // sums, which wait on the shared-memory pipe (a float4 shared load costs
 // four cycles of it: 3 for 32 FFMA), not on FFMA.
+
+#include <climits>
 
 #include <cuda_runtime.h>
 
@@ -226,7 +231,8 @@ __global__ void __launch_bounds__(kFactorThreads, 2)
                    const float* __restrict__ scales, float* __restrict__ mll,
                    float* __restrict__ linv, float* __restrict__ alpha,
                    float* __restrict__ gram, int batch, int n, int n_way,
-                   int m, int splits, float diag_add, float n_log_2pi) {
+                   int m, int splits, int scale_stride, int diff_stride,
+                   float diag_add, float n_log_2pi) {
   extern __shared__ float fsm[];
   float* L = fsm;                  // K_w, then L
   float* X = L + Lay::kFloats;     // L^-1
@@ -241,7 +247,7 @@ __global__ void __launch_bounds__(kFactorThreads, 2)
   // N. G is the sum of the shares in a fixed order; float4s of the blocks
   // on and below the diagonal, kLoads positions a thread at a time.
   constexpr int kLoads = 10;  // all of m = 128
-  const float s = scales[w];
+  const float s = scales[(size_t)b * scale_stride + w];
   const int nb = m / kBlk, lower4 = nb * (nb + 1) / 2 * kBlk * 8;
   const size_t share = (size_t)batch * m * m;
   const float4* pb = reinterpret_cast<const float4*>(part + (size_t)b * m * m);
@@ -287,7 +293,7 @@ __global__ void __launch_bounds__(kFactorThreads, 2)
     }
   }
   for (int i = tid; i < m; i += kFactorThreads)
-    v[i] = i < n ? diffs[(size_t)w * n + i] : 0.f;
+    v[i] = i < n ? diffs[(size_t)b * diff_stride + (size_t)w * n + i] : 0.f;
   __syncthreads();
 
   tile_chol::factor_sub_panels<Lay>(L, X, P, m / kBlk, tid);
@@ -362,16 +368,19 @@ long long fused_mll_workspace_floats(int batch, int n, int d) {
   return (long long)p.splits * batch * p.m * p.m;
 }
 
-// z [B, N, D], diffs [W, N], scales [W] -> mll [B, W], linv = L^-1
-// [B, W, N, N], alpha [B, W, N], gram = Z Z^T [B, N, N]; work: the
-// workspace (fused_mll_workspace_floats). All f32, contiguous, on the
-// device, work 16-byte aligned. Launches on `stream` and returns a
-// cudaError_t (0 on success).
+// z [B, N, D], diffs [W, N] or [B, W, N], scales [W] or [B, W] -> mll
+// [B, W], linv = L^-1 [B, W, N, N], alpha [B, W, N], gram = Z Z^T
+// [B, N, N]; work: the workspace (fused_mll_workspace_floats). per_episode_
+// scales and per_episode_diffs say which form each of the two has. All f32,
+// contiguous, on the device, work 16-byte aligned. Launches on `stream` and
+// returns a cudaError_t (0 on success).
 int fused_mll_forward(const float* z, const float* diffs, const float* scales,
                       float* mll, float* linv, float* alpha, float* gram,
                       float* work, int batch, int n, int d, int n_way,
+                      int per_episode_scales, int per_episode_diffs,
                       float diag_add, void* stream) {
-  if (!valid(batch, n, d, n_way)) return (int)cudaErrorInvalidValue;
+  if (!valid(batch, n, d, n_way) || (long long)batch * n_way * n > INT_MAX)
+    return (int)cudaErrorInvalidValue;
   const GramPlan p = gram_plan(n, d);
   cudaError_t err = cudaFuncSetAttribute(
       gram_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -389,7 +398,8 @@ int fused_mll_forward(const float* z, const float* diffs, const float* scales,
   const float n_log_2pi = (float)(n * 1.8378770664093453);
   episode_kernel<<<dim3(n_way, batch), kFactorThreads, kEpisodeSmem, s>>>(
       work, diffs, scales, mll, linv, alpha, gram, batch, n, n_way, p.m,
-      p.splits, diag_add, n_log_2pi);
+      p.splits, per_episode_scales ? n_way : 0,
+      per_episode_diffs ? n_way * n : 0, diag_add, n_log_2pi);
   return (int)cudaGetLastError();
 }
 

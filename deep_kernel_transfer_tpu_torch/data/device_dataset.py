@@ -1,7 +1,7 @@
 """A split staged once in device memory; episodes sampled on the device.
 
 Port of deep_kernel_transfer_tpu/data/device_dataset.py (without `shard`,
-which waits for ROADMAP queue A, item 12):
+which waits for ROADMAP queue A, item 9):
 
   1. decode and eval-transform every image of a split once on the host
      (or read the stage cache that an earlier run, of either package,
@@ -241,17 +241,18 @@ def make_fused_epoch(model, ds: DeviceDataset, n_way: int, n_support: int,
 
 
 def make_fused_eval(model, ds: DeviceDataset, n_way: int, n_support: int,
-                    n_query: int, episode_batch: int):
+                    n_query: int, episode_batch: int, correct=None):
     """sample -> batch_correct as one device loop (JAX
     device_dataset.py:336-361). Returns eval_chunk(gen, length,
     batch=episode_batch) -> per-episode accuracy% [length, batch] on the
-    device."""
+    device. `correct` maps an episode batch to its accuracies in place of
+    model.batch_correct (the test-time heads)."""
+    correct = correct or model.batch_correct
 
     def eval_chunk(gen: torch.Generator, length: int,
                    batch: int = episode_batch) -> torch.Tensor:
         return torch.stack([
-            model.batch_correct(ds.sample_episodes(gen, n_way, n_support,
-                                                   n_query, batch))
+            correct(ds.sample_episodes(gen, n_way, n_support, n_query, batch))
             for _ in range(length)])
 
     return eval_chunk

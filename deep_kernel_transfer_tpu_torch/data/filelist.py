@@ -9,7 +9,7 @@ base/val/novel.json:
 from a background thread. Its numpy RandomState draws are the JAX package's, in
 the same order, so a seed gives the very same episodes in both packages.
 `SimpleDataLoader` (flat minibatches for baseline pretraining) waits for
-ROADMAP queue A, item 10.
+ROADMAP queue A, item 7.
 """
 from __future__ import annotations
 

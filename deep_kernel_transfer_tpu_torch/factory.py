@@ -4,8 +4,8 @@ Port of deep_kernel_transfer_tpu/factory.py:26-220 (reference
 train.py:73-182, test.py:73-115) for DKT: filelist resolution with the
 cross / cross_char settings, image-size rules, default epoch schedules,
 the checkpoint-directory naming that test.py relies on, and the DKT
-method. The other methods wait for ROADMAP queue A, item 10; more than one
-device for item 12.
+method. The other methods wait for ROADMAP queue A, item 7; more than one
+device for item 9.
 """
 from __future__ import annotations
 
@@ -92,12 +92,12 @@ def default_stop_epoch(params) -> int:
 
 def check_devices(params) -> None:
     """The port runs on one device; --n_devices > 1 is ROADMAP queue A,
-    item 12."""
+    item 9."""
     n = getattr(params, "n_devices", None)
     if n is not None and n > 1:
         raise NotImplementedError(
             f"--n_devices={n}: the episode-parallel trainer is not ported "
-            "yet (ROADMAP queue A, item 12)")
+            "yet (ROADMAP queue A, item 9)")
 
 
 def use_device_data(params, data_file: str, image_size: int,
@@ -129,7 +129,7 @@ def build_method(params, n_way: int, n_support: int, device=None):
     if params.method != "DKT":
         raise NotImplementedError(
             f"method '{params.method}' is not ported yet (ROADMAP queue A, "
-            "item 10)")
+            "item 7)")
     return DKT(model_dict[params.model](), n_way, n_support,
                kernel_type=kernel_type(params),
                feature_dtype=getattr(params, "feature_dtype", "bfloat16"),

@@ -7,14 +7,17 @@ batching is broadcasting: params leaves may carry a leading way axis [W]
 and inputs leading episode axes, so one call factors every [.., W, N, N]
 Gram at once.
 
-Only the dense route is ported: the JAX package's Woodbury route (taken
-when 2D <= N) waits for ROADMAP queue A, item 8. The dense route is exact
-at every size, and the TPU-compiler padding of exact.py:102-120 is not
-needed here.
+Two routes, as in the JAX package (exact.py:194-256): a kernel that is
+exactly low-rank (the linear family) takes the Woodbury route of
+gp/low_rank.py when its feature width D' satisfies 2D' <= N, unless
+force_dense is set; every other call factors the dense N x N Gram. The
+TPU-compiler padding of exact.py:102-120 is not needed here.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
+
+import os
 
 import torch
 
@@ -79,16 +82,35 @@ class ExactGP(NamedTuple):
 
     assume_pd skips the jitter search when the noisy Gram is PD by
     construction (a PSD kernel plus a fixed noise >= 1e-2): one plain
-    factorisation, with the same result (JAX exact.py:139-153)."""
+    factorisation, with the same result (JAX exact.py:139-153).
+    force_dense keeps a low-rank kernel on the dense route (JAX
+    exact.py:138); methods set it once, at construction."""
 
     kernel: Kernel
     likelihood: GaussianLikelihood
     assume_pd: bool = False
+    force_dense: bool = False
 
     def _factor(self, k_noisy: torch.Tensor) -> torch.Tensor:
         if self.assume_pd:
             return _cholesky_or_nan(k_noisy)
         return psd_safe_cholesky(k_noisy)
+
+    @staticmethod
+    def force_dense_from_env() -> bool:
+        """DKT_GP_FORCE_DENSE: unset, "", 0, false or off (any case) is
+        off, anything else on (JAX exact.py:155-164)."""
+        return os.environ.get("DKT_GP_FORCE_DENSE", "").strip().lower() not in (
+            "", "0", "false", "off")
+
+    def _use_low_rank(self, params: dict, x: torch.Tensor) -> bool:
+        """Whether mll and posterior take the Woodbury route at x
+        [..., N, D]: the kernel is exactly low-rank, its feature width D'
+        is at most N/2, and force_dense is off (JAX exact.py:211-226)."""
+        if self.force_dense or self.kernel.low_rank is None:
+            return False
+        _, z = self.kernel.low_rank(params["kernel"], x[..., :1, :])
+        return 2 * z.shape[-1] <= x.shape[-2]
 
     def init(self, noise: float | None = None, device=None) -> dict:
         """Parameters on `device`: CUDA when None, raising when there is no
@@ -106,8 +128,13 @@ class ExactGP(NamedTuple):
         divided by N as gpytorch's ExactMarginalLogLikelihood does."""
         n = x.shape[-2]
         diff = y - constant_mean(params["mean"], x)
-        k = self.kernel.apply(params["kernel"], x, x)
         noise = self.likelihood.noise(params["likelihood"])
+        if self._use_low_rank(params, x):
+            from .low_rank import woodbury_mll
+
+            s, z = self.kernel.low_rank(params["kernel"], x)
+            return woodbury_mll(z, diff, s, noise)
+        k = self.kernel.apply(params["kernel"], x, x)
         chol = self._factor(_noisy(k, noise))
         alpha = torch.cholesky_solve(diff[..., None], chol)[..., 0]
         quad = torch.sum(diff * alpha, dim=-1)
@@ -124,9 +151,18 @@ class ExactGP(NamedTuple):
         kp = params["kernel"]
         diff = y_train - constant_mean(params["mean"], x_train)
         mean_q = constant_mean(params["mean"], x_query)
+        noise = self.likelihood.noise(params["likelihood"])
+        if self._use_low_rank(params, x_train):
+            from .low_rank import woodbury_posterior
+
+            s, z_tr = self.kernel.low_rank(kp, x_train)
+            _, z_q = self.kernel.low_rank(kp, x_query)
+            mean_adj, var, cov = woodbury_posterior(
+                z_tr, diff, z_q, s, noise, full_covariance=full_covariance)
+            return MultivariateNormal(mean_q + mean_adj,
+                                      torch.clamp(var, min=1e-10), cov)
         k_tt = self.kernel.apply(kp, x_train, x_train)
         k_tq = self.kernel.apply(kp, x_train, x_query)  # [..., N, M]
-        noise = self.likelihood.noise(params["likelihood"])
         chol = self._factor(_noisy(k_tt, noise))
         alpha = torch.cholesky_solve(diff[..., None], chol)  # [..., N, 1]
         mean = mean_q + dot_f32(k_tq.transpose(-1, -2), alpha.transpose(

@@ -3,7 +3,7 @@
 Port of deep_kernel_transfer_tpu/gp/kernels.py for the classification
 kernel types (reference methods/DKT.py:351-372): `linear`, `cossim`,
 `bncossim`, `rbf`, `matern` (nu = 2.5), `poli1` and `poli2`; the
-regression track's `spectral` waits for ROADMAP queue A, item 11.
+regression track's `spectral` waits for ROADMAP queue A, item 8.
 Parameterisation follows GPyTorch: every positive
 hyperparameter theta is stored raw with theta = softplus(raw), so a raw
 init of 0 gives theta = log 2.
@@ -11,6 +11,11 @@ init of 0 gives theta = log 2.
 Parameters are nested dicts of tensors. Every leaf may carry leading batch
 dimensions (the one-vs-rest way axis): `apply(params, x1, x2)` broadcasts
 them against the inputs' batch dimensions and returns [..., N1, N2].
+
+The linear family (linear, cossim, bncossim, poli1) is exactly low-rank,
+k = s Phi(a).Phi(b), and says so through `low_rank`: the exact GP then
+takes the Woodbury route of gp/low_rank.py when 2D <= N (JAX
+kernels.py:136-215).
 """
 from __future__ import annotations
 
@@ -77,11 +82,14 @@ class Kernel(NamedTuple):
     """A pure-functional kernel.
 
     init(device) -> params; apply(params, x1, x2) -> Gram [..., N1, N2];
-    diag(params, x) -> k(x_i, x_i) [..., N]."""
+    diag(params, x) -> k(x_i, x_i) [..., N]; low_rank(params, x) -> (s,
+    Phi(x) [..., N, D']) with k(a, b) = s Phi(a).Phi(b) exactly, or None
+    for a kernel that is not low-rank."""
 
     init: Callable[..., dict]
     apply: Callable[[dict, torch.Tensor, torch.Tensor], torch.Tensor]
     diag: Callable[[dict, torch.Tensor], torch.Tensor]
+    low_rank: Callable[[dict, torch.Tensor], tuple] | None = None
 
 
 def linear_kernel(train_variance: bool = True) -> Kernel:
@@ -100,6 +108,9 @@ def linear_kernel(train_variance: bool = True) -> Kernel:
             v = softplus(params["raw_variance"])[..., None]
             return v * torch.sum(x * x, dim=-1)
 
+        def low_rank(params, x):
+            return softplus(params["raw_variance"]), x
+
     else:
 
         def init(device=None):
@@ -111,7 +122,10 @@ def linear_kernel(train_variance: bool = True) -> Kernel:
         def diag(params, x):
             return torch.sum(x * x, dim=-1)
 
-    return Kernel(init, apply, diag)
+        def low_rank(params, x):
+            return torch.ones((), dtype=x.dtype, device=x.device), x
+
+    return Kernel(init, apply, diag, low_rank)
 
 
 def rbf_kernel() -> Kernel:
@@ -165,7 +179,19 @@ def polynomial_kernel(power: int) -> Kernel:
         offset = softplus(params["raw_offset"])[..., None]
         return (torch.sum(x * x, dim=-1) + offset) ** power
 
-    return Kernel(init, apply, diag)
+    if power != 1:
+        return Kernel(init, apply, diag)
+
+    def low_rank(params, x):
+        # (a.b + c) is exactly low-rank: Phi(x) = [x, sqrt(c)]
+        col = torch.sqrt(softplus(params["raw_offset"]))[..., None, None] * (
+            torch.ones(x.shape[:-1] + (1,), dtype=x.dtype, device=x.device))
+        lead = torch.broadcast_shapes(col.shape[:-2], x.shape[:-2])
+        phi = torch.cat([x.expand(lead + x.shape[-2:]),
+                         col.expand(lead + col.shape[-2:])], dim=-1)
+        return torch.ones((), dtype=x.dtype, device=x.device), phi
+
+    return Kernel(init, apply, diag, low_rank)
 
 
 def scale(base: Kernel) -> Kernel:
@@ -183,7 +209,13 @@ def scale(base: Kernel) -> Kernel:
         s = softplus(params["raw_outputscale"])[..., None]
         return s * base.diag(params["base"], x)
 
-    return Kernel(init, apply, diag)
+    low_rank = None
+    if base.low_rank is not None:
+        def low_rank(params, x):
+            bs, z = base.low_rank(params["base"], x)
+            return softplus(params["raw_outputscale"]) * bs, z
+
+    return Kernel(init, apply, diag, low_rank)
 
 
 def make_kernel(kind: str) -> Kernel:
@@ -204,7 +236,7 @@ def make_kernel(kind: str) -> Kernel:
         return scale(linear_kernel(train_variance=False))
     if kind_l == "spectral":
         raise NotImplementedError(
-            "kernel 'spectral' is not ported yet (ROADMAP queue A, item 11)")
+            "kernel 'spectral' is not ported yet (ROADMAP queue A, item 8)")
     raise ValueError(f"[ERROR] the kernel '{kind}' is not supported!")
 
 

@@ -19,6 +19,13 @@ meta-training, conditioned on the support set only at test time; +-1
 one-vs-rest targets; prediction = argmax over ways of sigmoid(posterior
 mean); fixed noise 0.1; GP hyperparameters at lr 1e-4 and the trunk at
 1e-3, with Adam's state reset every epoch (reset_opt_state).
+
+The test-time heads of reference methods/DKT.py:207-256 (JAX
+dkt.py:362-459): the Laplace GP classifier on the support features
+(gp/laplace.py, --laplace), and per-episode adaptation of the GP
+hyperparameters by Adam on the support MLL before scoring (--adaptation),
+whose MLL runs through the fused kernel with per-episode parameters where
+it applies (the JAX package adapts through its plain route).
 """
 from __future__ import annotations
 
@@ -29,8 +36,10 @@ from .._device import resolve_device
 from ..gp import ExactGP, GaussianLikelihood, make_kernel, normalizes_features
 from ..gp.exact import init_batched
 from ..gp.kernels import softplus
+from ..gp.laplace import laplace_ovr_predict
 from ..models.backbones import EpisodicBatchNorm
 from ..ops.fused_mll import fused_linear_mll, supports
+from ..utils.adam import Adam
 from .base import (apply_trunk, episode_labels, flatten_episode,
                    one_vs_rest_targets, train_step_body)
 
@@ -66,6 +75,23 @@ def _slice_ways(tree: dict, n_way: int) -> dict:
             for k, v in tree.items()}
 
 
+def _leaves(tree: dict) -> list:
+    """Every leaf of a nested dict, in insertion order."""
+    return [x for v in tree.values()
+            for x in (_leaves(v) if isinstance(v, dict) else [v])]
+
+
+def _fill(template: dict, leaves) -> dict:
+    """template's structure with its leaves taken in order from `leaves`."""
+    it = iter(leaves)
+
+    def fill(t):
+        return {k: fill(v) if isinstance(v, dict) else next(it)
+                for k, v in t.items()}
+
+    return fill(template)
+
+
 class DKT(nn.Module):
     """DKT method. Build, then `init(example_episode)` before training.
 
@@ -79,7 +105,7 @@ class DKT(nn.Module):
                  kernel_type: str = "bncossim", gp_lr: float = 1e-4,
                  feature_lr: float = 1e-3, noise: float = 0.1,
                  feature_dtype: str = "bfloat16", use_fused_mll: bool = True,
-                 device=None):
+                 force_dense: bool | None = None, device=None):
         super().__init__()
         self.device = resolve_device(device)
         self.n_way = n_way
@@ -91,11 +117,16 @@ class DKT(nn.Module):
         self.gp_lr = gp_lr
         self.feature_lr = feature_lr
         # PSD kernel + fixed noise >= 1e-2: the noisy Gram is PD by
-        # construction, so the jitter search is skipped (JAX dkt.py:117-122)
+        # construction, so the jitter search is skipped (JAX dkt.py:117-122).
+        # force_dense None reads DKT_GP_FORCE_DENSE once, here (JAX
+        # dkt.py:103-110): it keeps the low-rank kernels off the Woodbury
+        # route
+        if force_dense is None:
+            force_dense = ExactGP.force_dense_from_env()
         self.spec = ExactGP(
             make_kernel(kernel_type),
             GaussianLikelihood(trainable=False, fixed_noise=noise),
-            assume_pd=noise >= 1e-2)
+            assume_pd=noise >= 1e-2, force_dense=force_dense)
         self.feature = backbone
         self.gp = None
         self.optimizer = None
@@ -164,18 +195,25 @@ class DKT(nn.Module):
                                   train=True, ep_groups=b)
         z = z.reshape(b, n, z.shape[-1])
         targets = one_vs_rest_targets(n_way, n_total, self.device)
-        gp = self._gp_params_for(n_way)
+        mll = self._mll(self._gp_params_for(n_way), z, targets)
+        return -torch.mean(torch.sum(mll, dim=1)), stats
+
+    def _mll(self, gp: dict, z: torch.Tensor,
+             targets: torch.Tensor) -> torch.Tensor:
+        """Per-way MLLs [B, W] of targets [W, N] at features z [B, N, D].
+        The GP params' leaves are [W] (shared by the episodes) or [B, W]
+        (each episode's own). The fused kernel where it applies, else the
+        batched ExactGP engine."""
+        n = z.shape[1]
         if self.use_fused_mll and supports(self.kernel_type, n):
-            diffs = targets - gp["mean"]["constant"][:, None]
+            diffs = targets - gp["mean"]["constant"][..., None]
             scales = softplus(gp["kernel"]["raw_outputscale"])
             base = gp["kernel"]["base"]
             if "raw_variance" in base:  # 'linear' kernel_type
                 scales = scales * softplus(base["raw_variance"])
-            mll = fused_linear_mll(z, diffs, scales, n,
-                                   float(self.spec.likelihood.fixed_noise))
-        else:
-            mll = self.spec.mll(gp, z[:, None], targets)  # [B, W]
-        return -torch.mean(torch.sum(mll, dim=1)), stats
+            return fused_linear_mll(z, diffs, scales, n,
+                                    float(self.spec.likelihood.fixed_noise))
+        return self.spec.mll(gp, z[:, None], targets)
 
     def train_step(self, xb: torch.Tensor) -> dict:
         """One optimizer step on the episode batch; returns the loss and
@@ -224,16 +262,18 @@ class DKT(nn.Module):
     # -- prediction --------------------------------------------------------
 
     def _logits_from_features(self, z_all: torch.Tensor, n_way: int,
-                              n_total: int,
-                              condition_on_all: bool = False) -> torch.Tensor:
+                              n_total: int, condition_on_all: bool = False,
+                              gp: dict | None = None) -> torch.Tensor:
         """Posterior means at the queries, [..., n_way*Q, n_way], from
         features z_all [..., n_way*n_total, D] (eval protocol: GP
-        conditioned on the support set, or on everything)."""
+        conditioned on the support set, or on everything). `gp` replaces
+        the model's GP params, e.g. by adapted ones with leaves [B, W]."""
         s = self.n_support
         lead, d = z_all.shape[:-2], z_all.shape[-1]
         z = z_all.reshape(lead + (n_way, n_total, d))
         z_query = z[..., s:, :].reshape(lead + (-1, d))
-        gp = self._gp_params_for(n_way)
+        if gp is None:
+            gp = self._gp_params_for(n_way)
         if condition_on_all:
             x_train = z_all
             targets = one_vs_rest_targets(n_way, n_total, z_all.device)
@@ -245,14 +285,19 @@ class DKT(nn.Module):
                                    z_query.unsqueeze(-3))
         return post.mean.transpose(-1, -2)
 
-    def batch_logits(self, xb: torch.Tensor) -> torch.Tensor:
-        """[B, n_way*Q, n_way] posterior means, eval-mode BatchNorm."""
-        xb = xb.to(self.device)
+    def _batch_features(self, xb: torch.Tensor) -> torch.Tensor:
+        """Eval-mode features [B, n_way*(S+Q), D] of xb [B, n_way, S+Q,
+        H, W, C]: one trunk forward over the flat batch."""
         b, n_way, n_total = xb.shape[0], xb.shape[1], xb.shape[2]
         z, _ = self._features(
             xb.reshape((b * n_way * n_total,) + tuple(xb.shape[3:])))
-        z = z.reshape(b, n_way * n_total, z.shape[-1])
-        return self._logits_from_features(z, n_way, n_total)
+        return z.reshape(b, n_way * n_total, z.shape[-1])
+
+    def batch_logits(self, xb: torch.Tensor) -> torch.Tensor:
+        """[B, n_way*Q, n_way] posterior means, eval-mode BatchNorm."""
+        xb = xb.to(self.device)
+        return self._logits_from_features(self._batch_features(xb),
+                                          xb.shape[1], xb.shape[2])
 
     def episode_logits(self, x: torch.Tensor,
                        condition_on_all: bool = False) -> torch.Tensor:
@@ -282,7 +327,105 @@ class DKT(nn.Module):
     @torch.no_grad()
     def batch_correct(self, xb: torch.Tensor) -> torch.Tensor:
         """Per-episode query accuracy in percent, [B]."""
-        n_way, n_query = xb.shape[1], xb.shape[2] - self.n_support
-        y = episode_labels(n_way, n_query, self.device)
-        pred = torch.argmax(self.batch_scores(xb), dim=-1)
+        return self._query_accuracy(
+            torch.argmax(self.batch_scores(xb), dim=-1), xb.shape[1])
+
+    def _query_accuracy(self, pred: torch.Tensor, n_way: int) -> torch.Tensor:
+        """Per-episode accuracy in percent [B] of the class ids pred
+        [B, n_way*Q]."""
+        y = episode_labels(n_way, pred.shape[-1] // n_way, pred.device)
         return torch.mean((pred == y).to(torch.float32), dim=1) * 100.0
+
+    # -- the Laplace head (reference methods/DKT.py:207-222) ---------------
+
+    def _laplace_pred(self, z_all: torch.Tensor, n_way: int,
+                      n_total: int) -> torch.Tensor:
+        """Query class ids [..., n_way*Q] from the Laplace GPC (1.0 *
+        RBF(0.1), one-vs-rest) fit to the support features of z_all
+        [..., n_way*n_total, D]; every way of every episode in one batched
+        Newton solve (JAX dkt.py:362-374)."""
+        s = self.n_support
+        lead, d = z_all.shape[:-2], z_all.shape[-1]
+        z = z_all.reshape(lead + (n_way, n_total, d))
+        z_support = z[..., :s, :].reshape(lead + (n_way * s, d))
+        z_query = z[..., s:, :].reshape(lead + (-1, d))
+        return laplace_ovr_predict(z_support,
+                                   episode_labels(n_way, s, z_all.device),
+                                   z_query, n_way)
+
+    @torch.no_grad()
+    def _episode_laplace_pred(self, x: torch.Tensor) -> torch.Tensor:
+        """[n_way*Q] predicted class ids of one episode [n_way, S+Q, H, W,
+        C] from the Laplace head."""
+        z_all, _ = self._features(flatten_episode(x.to(self.device)))
+        return self._laplace_pred(z_all, x.shape[0], x.shape[1])
+
+    @torch.no_grad()
+    def correct_laplace(self, x: torch.Tensor) -> tuple[float, int]:
+        """(top-1 correct, count) of one episode under the Laplace head
+        (JAX dkt.py:376-386)."""
+        n_way, n_query = x.shape[0], x.shape[1] - self.n_support
+        y = episode_labels(n_way, n_query, self.device)
+        pred = self._episode_laplace_pred(x)
+        return float((pred == y).sum()), n_way * n_query
+
+    @torch.no_grad()
+    def batch_correct_laplace(self, xb: torch.Tensor) -> torch.Tensor:
+        """Per-episode Laplace-head accuracy in percent, [B] (JAX
+        dkt.py:388-400)."""
+        xb = xb.to(self.device)
+        n_way, n_total = xb.shape[1], xb.shape[2]
+        return self._query_accuracy(
+            self._laplace_pred(self._batch_features(xb), n_way, n_total),
+            n_way)
+
+    # -- test-time GP adaptation (reference methods/DKT.py:249-256) --------
+
+    def adapt_gp(self, xb: torch.Tensor, steps: int, lr: float = 1e-3,
+                 z_all: torch.Tensor | None = None) -> dict:
+        """Each episode's GP hyperparameters after `steps` Adam steps (optax
+        adam(lr)) against its support-set sum-MLL (JAX dkt.py:425-459).
+
+        xb [B, n_way, S+Q, H, W, C]; z_all [B, n_way*(S+Q), D], the
+        episodes' eval-mode features, reuses a trunk forward. Returns a GP
+        params tree with leaves [B, n_way]; the model's own parameters and
+        optimizer are left untouched. The B episodes step together: the
+        loss is the sum of their losses, so each leaf's gradient row is its
+        own episode's gradient, and one fused-MLL forward and backward serve
+        the whole batch at each step."""
+        n_way, s = xb.shape[1], self.n_support
+        b = xb.shape[0]
+        if z_all is None:
+            with torch.no_grad():
+                z_all = self._batch_features(xb.to(self.device))
+        d = z_all.shape[-1]
+        z_support = z_all.detach().reshape(b, n_way, -1, d)[:, :, :s].reshape(
+            b, n_way * s, d)
+        targets = one_vs_rest_targets(n_way, s, self.device)
+        gp0 = self._gp_params_for(n_way)
+        leaves = [v.detach().expand((b,) + v.shape).clone().requires_grad_(True)
+                  for v in _leaves(gp0)]
+        opt = Adam(leaves, lr)
+        for _ in range(steps):
+            with torch.enable_grad():
+                loss = -torch.sum(self._mll(_fill(gp0, leaves), z_support,
+                                            targets))
+                grads = torch.autograd.grad(loss, leaves)
+            opt.step(grads)
+        return _fill(gp0, [p.detach() for p in leaves])
+
+    def batch_correct_adapted(self, xb: torch.Tensor, steps: int,
+                              lr: float = 1e-3) -> torch.Tensor:
+        """Per-episode accuracy in percent [B] after `steps` of per-episode
+        GP adaptation on the support set (--adaptation; JAX
+        dkt.py:402-423): one trunk forward serves the adaptation and the
+        scoring."""
+        xb = xb.to(self.device)
+        n_way, n_total = xb.shape[1], xb.shape[2]
+        with torch.no_grad():
+            z_all = self._batch_features(xb)
+        gp = self.adapt_gp(xb, steps, lr, z_all=z_all)
+        with torch.no_grad():
+            logits = self._logits_from_features(z_all, n_way, n_total, gp=gp)
+        return self._query_accuracy(
+            torch.argmax(torch.sigmoid(logits), dim=-1), n_way)

@@ -211,7 +211,7 @@ class _ModelDict(dict):
 
     def __missing__(self, name):
         raise NotImplementedError(
-            f"backbone '{name}' is not ported yet (ROADMAP queue A, item 9)")
+            f"backbone '{name}' is not ported yet (ROADMAP queue A, item 6)")
 
 
 model_dict = _ModelDict(Conv4=Conv4, Conv4S=Conv4S)

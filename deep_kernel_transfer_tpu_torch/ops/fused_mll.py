@@ -14,6 +14,13 @@ solve) and G from the forward (no second Gram):
 As in the TPU kernel, K is padded with an identity block, here to the next
 multiple of 32 (the factor's sub-panel); the residuals are stored at their
 real size N.
+
+The scales and diffs are either shared by the batch (scales [W], diffs
+[W, N]: meta-training) or each episode's own (scales [B, W], diffs
+[B, W, N]: test-time adaptation, the counterpart of vmapping the JAX
+function over episodes with batched scales). The kernel reads both forms
+through an episode stride, 0 for the shared form, and the backward returns
+gradients of the caller's shape.
 """
 from __future__ import annotations
 
@@ -47,7 +54,7 @@ def _residuals(gram, diffs, scales, diag: float, m: int):
     algorithm: Cholesky, explicit inverse, y = L^-1 diff, alpha = L^-T y."""
     n = gram.shape[-1]
     eye = torch.eye(n, dtype=gram.dtype, device=gram.device)
-    k = scales[None, :, None, None] * gram[:, None] + diag * eye
+    k = scales[..., None, None] * gram[:, None] + diag * eye
     pad = torch.ones(m, dtype=gram.dtype, device=gram.device)
     pad[:n] = 0
     k = F.pad(k, (0, m - n, 0, m - n)) + torch.diag(pad)
@@ -55,7 +62,7 @@ def _residuals(gram, diffs, scales, diag: float, m: int):
     linv = torch.linalg.solve_triangular(
         chol, torch.eye(m, dtype=k.dtype, device=k.device).expand_as(chol),
         upper=False)
-    y = (linv @ F.pad(diffs, (0, m - n))[None, :, :, None])[..., 0]
+    y = (linv @ F.pad(diffs, (0, m - n))[..., None])[..., 0]
     alpha = (linv.mT @ y[..., None])[..., 0]
     quad = torch.sum(y ** 2, dim=-1)
     logdet = 2.0 * torch.sum(
@@ -75,18 +82,23 @@ def _forward_plain(z, diffs, scales, noise, jitter):
 
 def fused_linear_mll_plain(z, diffs, scales, n_real: int, noise: float,
                            jitter: float = 1e-6):
-    """The kernel's function in plain differentiable torch ops: [B, W]."""
+    """The kernel's function in plain differentiable torch ops: [B, W];
+    scales and diffs shared ([W], [W, N]) or per episode ([B, W],
+    [B, W, N])."""
     _check(z, diffs, scales, n_real)
     return _forward_plain(z, diffs, scales, noise, jitter)[0]
 
 
 def _check(z, diffs, scales, n_real):
-    if z.dim() != 3 or diffs.dim() != 2 or scales.dim() != 1:
-        raise ValueError(f"want z [B, N, D], diffs [W, N], scales [W]; got "
-                         f"{tuple(z.shape)}, {tuple(diffs.shape)}, "
-                         f"{tuple(scales.shape)}")
+    if z.dim() != 3 or diffs.dim() not in (2, 3) or scales.dim() not in (1, 2):
+        raise ValueError(f"want z [B, N, D], diffs [W, N] or [B, W, N], "
+                         f"scales [W] or [B, W]; got {tuple(z.shape)}, "
+                         f"{tuple(diffs.shape)}, {tuple(scales.shape)}")
     b, n, _ = z.shape
-    if n != n_real or diffs.shape != (scales.shape[0], n):
+    w = scales.shape[-1]
+    if (n != n_real or diffs.shape[-2:] != (w, n)
+            or (diffs.dim() == 3 and diffs.shape[0] != b)
+            or (scales.dim() == 2 and scales.shape[0] != b)):
         raise ValueError(f"n_real={n_real}, z {tuple(z.shape)}, diffs "
                          f"{tuple(diffs.shape)}, scales {tuple(scales.shape)}")
     if not (z.device == diffs.device == scales.device):
@@ -99,7 +111,7 @@ def _forward_cuda(z, diffs, scales, noise, jitter):
             raise TypeError(f"fused_linear_mll kernel takes float32, got "
                             f"{name} {t.dtype}")
     b, n, d = z.shape
-    w = diffs.shape[0]
+    w = scales.shape[-1]
     if n > MAX_N:
         raise ValueError(f"fused_linear_mll kernel takes N <= {MAX_N}, got {n}")
     z, diffs, scales = z.contiguous(), diffs.contiguous(), scales.contiguous()
@@ -113,7 +125,7 @@ def _forward_cuda(z, diffs, scales, noise, jitter):
     size.argtypes = [ctypes.c_int] * 3
     size.restype = ctypes.c_longlong
     fn = lib.fused_mll_forward
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(z.device):
@@ -122,6 +134,7 @@ def _forward_cuda(z, diffs, scales, noise, jitter):
         err = fn(z.data_ptr(), diffs.data_ptr(), scales.data_ptr(),
                  mll.data_ptr(), linv.data_ptr(), alpha.data_ptr(),
                  gram.data_ptr(), work.data_ptr(), b, n, d, w,
+                 int(scales.dim() == 2), int(diffs.dim() == 3),
                  float(noise + jitter), stream)
     if err != 0:
         raise RuntimeError(f"fused_mll_forward launch failed: "
@@ -136,6 +149,7 @@ class _FusedLinearMLL(torch.autograd.Function):
         fwd = _forward_cuda if z.is_cuda else _forward_plain
         mll, linv, alpha, gram = fwd(z, diffs, scales, noise, jitter)
         ctx.save_for_backward(z, scales, linv, alpha, gram)
+        ctx.diffs_per_episode = diffs.dim() == 3
         return mll
 
     @staticmethod
@@ -146,11 +160,16 @@ class _FusedLinearMLL(torch.autograd.Function):
         kinv = linv.mT @ linv  # K^-1 = L^-T L^-1
         dk = (0.5 / n) * (alpha[..., :, None] * alpha[..., None, :] - kinv)
         dk = dk * g[:, :, None, None]
-        # K_w = s_w Z Z^T + noise I
-        m = torch.einsum("bwij,w->bij", dk + dk.mT, scales)
-        dz = m @ z
-        dscales = torch.einsum("bwij,bij->w", dk, gram)
-        ddiffs = -torch.einsum("bw,bwi->wi", g, alpha) / n
+        # K_w = s_w Z Z^T + noise I; a shared parameter's gradient is the
+        # sum over episodes, a per-episode one keeps the episode axis
+        per_ep = "bw" if scales.dim() == 2 else "w"
+        dz = None
+        if ctx.needs_input_grad[0]:
+            m = torch.einsum(f"bwij,{per_ep}->bij", dk + dk.mT, scales)
+            dz = m @ z
+        dscales = torch.einsum(f"bwij,bij->{per_ep}", dk, gram)
+        out = "bwi" if ctx.diffs_per_episode else "wi"
+        ddiffs = -torch.einsum(f"bw,bwi->{out}", g, alpha) / n
         return dz, ddiffs, dscales, None, None
 
 
@@ -159,7 +178,9 @@ def fused_linear_mll(z, diffs, scales, n_real: int, noise: float,
     """Batched one-vs-rest linear-kernel MLLs: [B, W].
 
     z [B, N, D] features, diffs [W, N] = targets - mean, scales [W]
-    positive outputscales; K_w = s_w Z Z^T + (noise + jitter) I. Matches
+    positive outputscales, both shared by the batch; or diffs [B, W, N] and
+    scales [B, W], each episode's own. K_w = s_w Z Z^T + (noise + jitter) I.
+    Matches
     ExactGP.mll (with gpytorch's 1/N scaling) for the scale(linear) kernel
     family. CUDA tensors launch the kernel (float32 only, N <= 128); CPU
     tensors take the plain torch version."""

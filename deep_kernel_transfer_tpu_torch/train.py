@@ -186,11 +186,11 @@ def main(argv=None, device=None):
     if params.method != "DKT":
         raise NotImplementedError(
             f"method '{params.method}' is not ported yet (ROADMAP queue A, "
-            "item 10)")
+            "item 7)")
     if params.warmup:
         raise NotImplementedError(
             "--warmup needs baseline pretraining, not ported yet (ROADMAP "
-            "queue A, item 10)")
+            "queue A, item 7)")
     factory.check_devices(params)
     device = resolve_device(device)
     _set_seed(params.seed)

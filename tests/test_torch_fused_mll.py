@@ -8,7 +8,8 @@ K^-1 and the Gram from the forward's residuals; the CUDA kernel itself is
 held to that plain version on the card by chip_smoke.py. Tolerances are
 those of the JAX package's own kernel test (tests/test_pallas_mll.py:39,45):
 forward 1e-5 absolute, gradients 2e-2 relative to each gradient's largest
-entry.
+entry. Each episode's own scales [B, W] and diffs [B, W, N] (test-time
+adaptation) are held to jax.vmap of the Pallas kernel over episodes.
 """
 import functools
 
@@ -135,9 +136,82 @@ def test_supports_matches_jax(kind, n):
     assert tfm.supports(kind, n) == jfm.supports(kind, n)
 
 
+def _per_episode_inputs(n, d, b=3, w=5, seed=0):
+    """Each episode's own scales [B, W] and diffs [B, W, N]."""
+    z, diffs, scales = _inputs(n, d, b, w, seed)
+    rng = np.random.RandomState(seed + 1)
+    scales_b = (scales[None] * rng.uniform(0.5, 2.0, (b, w))).astype(
+        np.float32)
+    diffs_b = (diffs[None] - rng.uniform(-0.3, 0.3, (b, w, 1))).astype(
+        np.float32)
+    return z, diffs_b, scales_b
+
+
+def _jax_per_episode(n):
+    """The JAX kernel vmapped over episodes with batched scales and diffs:
+    [B, W]."""
+    def one(z, d_, s):
+        return jfm.fused_linear_mll(z[None], d_, s, n, NOISE)[0]
+    return jax.vmap(one)
+
+
+@pytest.mark.parametrize("n,d", [(25, 64), (100, 256)])
+def test_per_episode_params_match_vmapped_pallas_kernel(interpret_pallas, n,
+                                                        d):
+    """scales [B, W] and diffs [B, W, N] against jax.vmap of the Pallas
+    kernel over episodes: forward 1e-5 absolute; the gradients in z, diffs
+    and scales 2e-2 relative, each of the caller's shape."""
+    z, diffs, scales = _per_episode_inputs(n, d)
+    jargs = [jnp.asarray(a) for a in (z, diffs, scales)]
+    want = np.asarray(_jax_per_episode(n)(*jargs))
+    want_g = jax.grad(lambda *a: -jnp.sum(_jax_per_episode(n)(*a)),
+                      argnums=(0, 1, 2))(*jargs)
+    for fn in (tfm.fused_linear_mll, tfm.fused_linear_mll_plain):
+        args = [torch.from_numpy(a).requires_grad_(True)
+                for a in (z, diffs, scales)]
+        got = fn(*args, n, NOISE)
+        assert got.shape == want.shape == (3, 5)
+        assert np.abs(got.detach().numpy() - want).max() < 1e-5
+        grads = torch.autograd.grad(-got.sum(), args)
+        for g, w, a in zip(grads, want_g, args):
+            assert g.shape == a.shape
+            assert _rel(g.numpy(), np.asarray(w)) < 2e-2
+
+
+def test_shared_params_equal_repeated_per_episode_params():
+    """The shared form [W], [W, N] and the per-episode form with every
+    episode's rows equal give the same mll and, summed over episodes, the
+    same gradients."""
+    z, diffs, scales = (torch.from_numpy(a) for a in _inputs(30, 96))
+    shared = [t.clone().requires_grad_(True) for t in (z, diffs, scales)]
+    per_ep = [z.clone().requires_grad_(True),
+              diffs.expand(3, -1, -1).clone().requires_grad_(True),
+              scales.expand(3, -1).clone().requires_grad_(True)]
+    a = tfm.fused_linear_mll(*shared, 30, NOISE)
+    b = tfm.fused_linear_mll(*per_ep, 30, NOISE)
+    assert torch.allclose(a, b, rtol=0, atol=1e-6)
+    ga = torch.autograd.grad(a.sum(), shared)
+    gb = torch.autograd.grad(b.sum(), per_ep)
+    assert torch.allclose(ga[0], gb[0], rtol=1e-5, atol=1e-6)
+    assert torch.allclose(ga[1], gb[1].sum(0), rtol=1e-5, atol=1e-6)
+    assert torch.allclose(ga[2], gb[2].sum(0), rtol=1e-5, atol=1e-6)
+
+
+def test_gradcheck_per_episode_float64():
+    z, diffs, scales = _per_episode_inputs(12, 16, b=2, w=3, seed=2)
+    args = [torch.from_numpy(a).double().requires_grad_(True)
+            for a in (z, diffs, scales)]
+    assert torch.autograd.gradcheck(
+        lambda *a: tfm.fused_linear_mll(*a, 12, NOISE), args)
+
+
 def test_rejects_mismatched_shapes():
     z, diffs, scales = (torch.from_numpy(a) for a in _inputs(30, 96))
     with pytest.raises(ValueError):
         tfm.fused_linear_mll(z, diffs[:, :29], scales, 30, NOISE)
     with pytest.raises(ValueError):
         tfm.fused_linear_mll(z, diffs, scales, 29, NOISE)
+    with pytest.raises(ValueError):  # per-episode rows for 2 of 3 episodes
+        tfm.fused_linear_mll(z, diffs.expand(2, -1, -1), scales, 30, NOISE)
+    with pytest.raises(ValueError):
+        tfm.fused_linear_mll(z, diffs, scales.expand(2, -1), 30, NOISE)
