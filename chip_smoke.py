@@ -43,8 +43,19 @@
      and `test_uncertainty.main`; checks the adaptation's 100 fused-MLL
      launches for each episode batch, the accuracies and the ECEs, and
      prints each head's wall time;
+   - DKT on ResNet10 at 224 px (5-way 5-shot 16-query, N = 105, D = 512,
+     8 episodes a step, bf16 trunk): the fused MLL at that shape against
+     its plain version and timed with its library call; 5 train steps
+     with the kernel's launches counted, the fused route against the
+     plain one, the step's ms, episodes/s, peak memory and profile; then
+     `train` and `test` through the CLI on a generated 224-px set;
    then the exact GP's Woodbury route against its dense route at N=4096,
-   D=256: agreement, ms and peak memory of each.
+   D=256: agreement, ms and peak memory of each; and every comparison
+   method (protonet, matchingnet, relationnet, relationnet_softmax, maml,
+   maml_approx, baseline, baseline++) through `train`, `save_features`
+   and `test` (and `test --adaptation` for maml and relationnet) on a
+   smaller set of the CLI phase's layout, Conv4 at 84 px: checkpoints,
+   caches, finite losses, accuracy above 50%, seconds of each part.
 6. Prints one JSON line of kernel results, then as its last line
    {"ok": true, "device": {...}}.
 
@@ -805,14 +816,17 @@ CLI_ARGS = ["--dataset=miniImagenet", "--model=Conv4", "--method=DKT",
             "--train_aug", "--episode_batch=32"]
 
 
-def class_images(c: int, n: int) -> np.ndarray:
-    """n images [n, 96, 96, 3] uint8 of class c: noise in [0, 96) and the
-    class signature, a 6x6 block 150 brighter at cell c of a 10x10 grid
-    that lies inside the 84-px centre crop."""
+def class_images(c: int, n: int, px: int = CLI_PX) -> np.ndarray:
+    """n images [n, px, px, 3] uint8 of class c: noise in [0, 96) and the
+    class signature, a block 150 brighter at cell c of a 10x10 grid that
+    lies inside the centre crop (at 96 px a 6x6 block, 7 px apart, from
+    13 px in; scaled with px)."""
     x = np.random.default_rng(1000 + c).integers(
-        0, 96, (n, CLI_PX, CLI_PX, 3), dtype=np.uint8)
-    r, col = 13 + 7 * (c // 10), 13 + 7 * (c % 10)
-    x[:, r:r + 6, col:col + 6] += 150
+        0, 96, (n, px, px, 3), dtype=np.uint8)
+    k = px / CLI_PX
+    r, col = round((13 + 7 * (c // 10)) * k), round((13 + 7 * (c % 10)) * k)
+    size = round(6 * k)
+    x[:, r:r + size, col:col + size] += 150
     return x
 
 
@@ -834,22 +848,25 @@ def png_bytes(img: np.ndarray) -> bytes:
 
 
 def write_cli_dataset(root: str, splits=CLI_SPLITS,
-                      n_images: int = CLI_IMAGES) -> dict:
-    """The miniImagenet layout under root/filelists/miniImagenet: PNGs and
-    base/val/novel.json, then each split's stage cache as the CLIs stage
-    it (the canvas for base, the 84-px eval crop for val and novel), keyed
-    by the port's own _stage_cache_key: the 96-px image is its own canvas,
-    and the eval transform of it (Scale to 96, CenterCrop 84) is its centre
-    crop. Returns split -> the filelist's path."""
+                      n_images: int = CLI_IMAGES, crop: int = CLI_CROP,
+                      canvas_base: bool = True) -> dict:
+    """The miniImagenet layout under root/filelists/miniImagenet: PNGs of
+    int(1.15 * crop) px and base/val/novel.json, then each split's stage
+    cache as the CLIs stage it (with canvas_base the canvas for base, as
+    --train_aug stages it; else, and for val and novel, the eval crop),
+    keyed by the port's own _stage_cache_key: the image is its own canvas,
+    and the eval transform of it (Scale to its own size, CenterCrop crop)
+    is its centre crop. Returns split -> the filelist's path."""
     from deep_kernel_transfer_tpu_torch.data.device_dataset import (
         _stage_cache_key, _stage_cache_store)
 
+    px = int(crop * 1.15)
     d = os.path.join(root, "filelists", "miniImagenet")
     os.makedirs(os.path.join(d, "images"))
     files, first = {}, 0
-    lo = (CLI_PX - CLI_CROP) // 2
+    lo = (px - crop) // 2
     def write_class(split: str, c: int) -> tuple[np.ndarray, list[str]]:
-        imgs = class_images(c, n_images)
+        imgs = class_images(c, n_images, px)
         paths = [os.path.join(d, "images", f"{split}_{c}_{i}.png")
                  for i in range(n_images)]
         for img, path in zip(imgs, paths):
@@ -870,11 +887,10 @@ def write_cli_dataset(root: str, splits=CLI_SPLITS,
                            "image_names": paths,
                            "image_labels": [first + c for c in range(n_class)
                                             for _ in range(n_images)]}, f)
-            canvas = split == "base"
-            host = imgs if canvas else imgs[:, lo:lo + CLI_CROP,
-                                            lo:lo + CLI_CROP]
+            canvas = canvas_base and split == "base"
+            host = imgs if canvas else imgs[:, lo:lo + crop, lo:lo + crop]
             _stage_cache_store(files[split], _stage_cache_key(
-                paths, CLI_CROP, canvas), CLI_CROP, canvas, host)
+                paths, crop, canvas), crop, canvas, host)
             first += n_class
     return files
 
@@ -1136,6 +1152,240 @@ def drive_woodbury_path(device, card: str) -> None:
           {"mll rel": 1e-4, "posterior mean abs": 1e-4})
 
 
+# -- DKT on ResNet10 at 224 px ------------------------------------------------
+
+RES_B, RES_PX, RES_QUERY = 8, 224, 16  # N = 5 * (5 + 16) = 105
+RES_D = 512
+RES_CLI_SPLITS = (("base", 10), ("val", 5), ("novel", 5))
+RES_CLI_IMAGES = 25
+
+
+def check_fused_mll_resnet(device) -> None:
+    """The fused MLL at the ResNet10 path's shape, B=8 N=105 D=512 W=5:
+    kernel against plain version with check_fused_mll's limits, and kernel,
+    plain version and library call timed in turns, with the bound."""
+    from deep_kernel_transfer_tpu_torch.ops.fused_mll import (
+        fused_linear_mll, fused_linear_mll_plain)
+
+    n = MAIN_WAY * (MAIN_SHOT + RES_QUERY)
+    check(f"fused_mll B={RES_B} N={n} D={RES_D} W={MAIN_WAY}",
+          fused_mll_errors(RES_B, n, RES_D, MAIN_WAY, device),
+          FUSED_MLL_LIMITS)
+    z, diffs, scales = mll_inputs(RES_B, n, RES_D, MAIN_WAY, device)
+    times = ms_in_turns({
+        "kernel": lambda: fused_linear_mll(z, diffs, scales, n, NOISE),
+        "plain": lambda: fused_linear_mll_plain(z, diffs, scales, n, NOISE),
+        "library": lambda: library_mll(z, diffs, scales, NOISE)})
+    bound = fused_mll_bound_ms(RES_B, n, RES_D, MAIN_WAY)
+    print(f"fused_linear_mll ResNet10 shape B={RES_B} N={n} D={RES_D} "
+          f"W={MAIN_WAY}, median (min-max) of turns: " + ", ".join(
+              f"{k} {v[0]:.4f} ({v[1]:.4f}-{v[2]:.4f}) ms"
+              for k, v in times.items())
+          + f", bound {bound[0]:.6f} ms ({bound[1]})", flush=True)
+
+
+def drive_resnet_path(device, card: str) -> dict:
+    """DKT(ResNet10, bncossim) at full width: 224-px 5w5s16q episodes (N =
+    105, D = 512), 8 a step, bf16 trunk, random uint8 pixels from a seeded
+    CUDA generator. 5 train steps through the fused MLL (launches counted),
+    the first batch's loss against the plain GP route; the step timed by
+    CUDA events in turns, episodes/s, peak memory and a torch.profiler
+    table. Then `train` (one epoch of 3 batches of 8) and `test` through
+    the CLI on a generated 224-px miniImagenet-layout set. Returns the
+    fused MLL's launches over the phase."""
+    from deep_kernel_transfer_tpu_torch import test, train
+    from deep_kernel_transfer_tpu_torch.data import device_dataset as dd
+    from deep_kernel_transfer_tpu_torch.methods import DKT
+    from deep_kernel_transfer_tpu_torch.models import ResNet10
+    from deep_kernel_transfer_tpu_torch.ops.fused_mll import fused_linear_mll
+
+    check_fused_mll_resnet(device)
+    gen = torch.Generator(device=device).manual_seed(1)
+    shape = (RES_B, MAIN_WAY, MAIN_SHOT + RES_QUERY, RES_PX, RES_PX, 3)
+    batches = [torch.randint(0, 256, shape, generator=gen, device=device,
+                             dtype=torch.uint8) for _ in range(2)]
+
+    def build(fused: bool):
+        return DKT(ResNet10(), MAIN_WAY, MAIN_SHOT, kernel_type="bncossim",
+                   feature_dtype="bfloat16", use_fused_mll=fused,
+                   device=device).init(batches[0][0],
+                                       torch.Generator().manual_seed(0))
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build(True)
+    plain = build(False)
+    plain.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        plain_loss = plain.batch_loss_train(batches[0])[0].item()
+    del plain
+    fused_linear_mll.launches = 0
+    losses = [model.train_step(batches[i % 2])["loss"] for i in range(5)]
+    torch.cuda.synchronize()
+    launched = fused_linear_mll.launches
+    losses = [float(v) for v in losses]
+    print(f"ResNet10 path: 5 train steps (bncossim, {MAIN_WAY}w{MAIN_SHOT}s"
+          f"{RES_QUERY}q, {RES_PX} px, B={RES_B}, bf16 trunk), losses "
+          f"{losses}, fused_linear_mll launches {launched}", flush=True)
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite ResNet10 loss: {losses}")
+    if launched != 5:
+        raise AssertionError(f"want 5 fused-MLL launches, got {launched}")
+    rel = abs(losses[0] - plain_loss) / abs(plain_loss)
+    print(f"ResNet10 step 1 loss: fused route {losses[0]!r}, plain route "
+          f"{plain_loss!r}, relative difference {rel:.3e}", flush=True)
+    if rel >= 1e-4:
+        raise AssertionError("ResNet10: fused route disagrees with plain")
+    times = ms_in_turns({"step": lambda: model.train_step(batches[0])},
+                        rounds=4, iters=3, warmup=1)
+    ms, lo, hi = times["step"]
+    print(f"ResNet10 train step: {ms:.3f} ms (median of 4 turns, "
+          f"{lo:.3f}-{hi:.3f}), {RES_B / ms * 1e3:.1f} episodes/s, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]",
+          flush=True)
+    profile_step(lambda: model.train_step(batches[0]))
+    del model, batches
+    torch.cuda.empty_cache()
+
+    cwd = os.getcwd()
+    args = ["--dataset=miniImagenet", "--model=ResNet10", "--method=DKT",
+            f"--episode_batch={RES_B}"]
+    with tempfile.TemporaryDirectory() as root:
+        os.chdir(root)
+        try:
+            t0 = time.perf_counter()
+            write_cli_dataset(root, RES_CLI_SPLITS, RES_CLI_IMAGES, RES_PX,
+                              canvas_base=False)
+            write_s = time.perf_counter() - t0
+            before = fused_linear_mll.launches
+            t0 = time.perf_counter()
+            train.main(args + ["--n_train_episodes=24", "--stop_epoch=1"])
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            cli_launches = fused_linear_mll.launches - before
+            t0 = time.perf_counter()
+            acc, ci = test.main(args + ["--n_iter=48", "--repeat=1"])
+            test_s = time.perf_counter() - t0
+            ckpt = "save/checkpoints/miniImagenet/ResNet10_DKT_5way_5shot"
+            names = sorted(os.listdir(ckpt))
+        finally:
+            os.chdir(cwd)
+            dd._CACHE.clear()
+    print(f"ResNet10 CLI: dataset written in {write_s:.1f} s; train 1 epoch "
+          f"of 3 batches in {train_s:.2f} s (fused_linear_mll launches "
+          f"{cli_launches}), 48-episode test in {test_s:.2f} s, accuracy "
+          f"{acc:.2f}% +- {ci:.2f}%, checkpoints {names} [{card}]",
+          flush=True)
+    if cli_launches != 3 or names != ["0.tar", "best_model.tar", "log"]:
+        raise AssertionError("the ResNet10 CLI run did not train 3 batches")
+    if not 0.0 <= acc <= 100.0:
+        raise AssertionError(f"ResNet10 CLI accuracy {acc}")
+    return {"fused_linear_mll": launched + cli_launches}
+
+
+# -- the comparison methods through the CLIs ----------------------------------
+
+ZOO_METHODS = ("protonet", "matchingnet", "relationnet", "relationnet_softmax",
+               "maml", "maml_approx", "baseline", "baseline++")
+ZOO_IMAGES = 30  # a class, in each split of the CLI phase's layout
+ZOO_ARGS = ["--dataset=miniImagenet", "--model=Conv4", "--episode_batch=8"]
+# the episodic methods 2 epochs of 10 batches of 8 episodes (RelationNet
+# validates at 81% after one, 100% after two); MAML 4 epochs (1 x n_task)
+# of 10 batches of n_task = 4; the baselines 1 epoch
+_EPISODIC = ["--stop_epoch=2", "--n_train_episodes=80"]
+_MAML = ["--stop_epoch=1", "--n_train_episodes=40"]
+ZOO_TRAIN = {"protonet": _EPISODIC, "matchingnet": _EPISODIC,
+             "relationnet": _EPISODIC, "relationnet_softmax": _EPISODIC,
+             "maml": _MAML, "maml_approx": _MAML,
+             "baseline": ["--stop_epoch=1"], "baseline++": ["--stop_epoch=1"]}
+
+
+def drive_zoo_path(device, card: str) -> None:
+    """Every comparison method through the CLIs on the CLI phase's
+    miniImagenet layout (64/16/20 classes, ZOO_IMAGES 96-px PNGs a class,
+    stage caches written beforehand), Conv4 at 84 px, without
+    augmentation: `train` for a few batches (ZOO_TRAIN; the baselines one
+    epoch of 120 minibatches of 16), then `save_features` where the method
+    tests from the cache, then the 600-episode `test`; and `test
+    --adaptation` for maml (100 inner steps, 32 episodes) and relationnet
+    (the relation-module finetune, 100 episodes). Checks the checkpoints, the caches, finite losses and an
+    accuracy above 50% (chance is 20%); prints the seconds of each part."""
+    from deep_kernel_transfer_tpu_torch import save_features, test, train
+    from deep_kernel_transfer_tpu_torch.data import device_dataset as dd
+    from deep_kernel_transfer_tpu_torch.data.feature_cache import cache_file
+    from deep_kernel_transfer_tpu_torch.io_utils import parse_args
+    from deep_kernel_transfer_tpu_torch.methods import base
+    from deep_kernel_transfer_tpu_torch.methods.baseline import BaselineTrain
+
+    losses = []
+
+    def recording(step):
+        def wrapped(self, *a):
+            m = step(self, *a)
+            losses.append(m["loss"])
+            return m
+        return wrapped
+
+    cwd = os.getcwd()
+    results = {}
+    with tempfile.TemporaryDirectory() as root:
+        os.chdir(root)
+        steps = (base.EpisodicMethod.train_step, BaselineTrain.train_step)
+        base.EpisodicMethod.train_step = recording(steps[0])
+        BaselineTrain.train_step = recording(steps[1])
+        try:
+            t0 = time.perf_counter()
+            write_cli_dataset(root, n_images=ZOO_IMAGES, canvas_base=False)
+            print(f"zoo phase: dataset written in "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+            for method in ZOO_METHODS:
+                args = ZOO_ARGS + [f"--method={method}"]
+                losses.clear()
+                t0 = time.perf_counter()
+                train.main(args + ZOO_TRAIN[method])
+                torch.cuda.synchronize()
+                wall = {"train": time.perf_counter() - t0}
+                values = [float(v) for v in losses]
+                if not values or not all(math.isfinite(v) for v in values):
+                    raise AssertionError(f"{method}: losses {values}")
+                ckpt = (f"save/checkpoints/miniImagenet/Conv4_{method}"
+                        + ("" if method.startswith("baseline")
+                           else "_5way_5shot"))
+                if not os.path.isfile(f"{ckpt}/best_model.tar"):
+                    raise AssertionError(f"{method}: no best_model.tar")
+                if not method.startswith("maml"):
+                    t0 = time.perf_counter()
+                    written = save_features.main(args)
+                    wall["features"] = time.perf_counter() - t0
+                    path = save_features.feature_file_path(
+                        parse_args("save_features", args))
+                    if cache_file(path) != written:
+                        raise AssertionError(f"{method}: no cache {path}")
+                t0 = time.perf_counter()
+                acc = test.main(args + ["--n_iter=600", "--repeat=1"])[0]
+                wall["test"] = time.perf_counter() - t0
+                accs = {"test": acc}
+                if method in ("maml", "relationnet"):
+                    t0 = time.perf_counter()
+                    n = 32 if method == "maml" else 100
+                    accs["adaptation"] = test.main(args + [
+                        f"--n_iter={n}", "--repeat=1", "--adaptation"])[0]
+                    wall["test --adaptation"] = time.perf_counter() - t0
+                results[method] = accs
+                print(f"zoo phase: {method}: {len(values)} train steps, "
+                      f"losses {values[0]:.4f} -> {values[-1]:.4f}; "
+                      f"accuracy {accs}; seconds " + ", ".join(
+                          f"{k} {v:.2f}" for k, v in wall.items())
+                      + f" [{card}]", flush=True)
+        finally:
+            base.EpisodicMethod.train_step, BaselineTrain.train_step = steps
+            os.chdir(cwd)
+            dd._CACHE.clear()
+    low = {m: a for m, a in results.items() if not a["test"] > 50.0}
+    if low:
+        raise AssertionError(f"accuracy not above 50%: {low}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1186,12 +1436,15 @@ def main() -> int:
     launches, step_ms = drive_main_path(device, card)
     paths = [lambda: drive_gp_memory_path(device),
              lambda: drive_cli_path(device, card, step_ms),
-             lambda: drive_heads_path(device, card)]
+             lambda: drive_heads_path(device, card),
+             lambda: drive_resnet_path(device, card)]
     for path in paths:
         torch.cuda.empty_cache()
         for name, count in path().items():
             launches[name] = launches.get(name, 0) + count
     drive_woodbury_path(device, card)
+    torch.cuda.empty_cache()
+    drive_zoo_path(device, card)
     for name, entry in kernels.items():
         entry["launches"] = launches[name]
 

@@ -2,7 +2,8 @@
 
 The JAX package `deep_kernel_transfer_tpu` stays the reference; this package
 mirrors its layout (`gp/`, `models/`, `methods/`, `ops/`, `data/`, `utils/`,
-the `train` and `test` CLIs) and imports none of it. Entry points run on
-CUDA unless the caller passes `device="cpu"`; the hand-written kernels live
-in `csrc/` and are built with nvcc at first use.
+the `train`, `save_features`, `test` and `test_uncertainty` CLIs) and
+imports none of it. Entry points run on CUDA unless the caller passes
+`device="cpu"`; the hand-written kernels live in `csrc/` and are built
+with nvcc at first use.
 """

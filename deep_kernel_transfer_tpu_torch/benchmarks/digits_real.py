@@ -15,15 +15,21 @@ file, written once from `sklearn.datasets.load_digits`.
     images drawn with PIL from RandomState(11); val = even digits, novel =
     odd digits.
 
-For each shot it trains DKT once with the JAX rows' flags
-(--dataset=omniglot --model=Conv4 --train_n_way=5 --test_n_way=5
---n_shot=S --seed=1, the default stop epoch), then tests with --repeat
-reseeded runs of 600 episodes; --dkt_variants adds the --laplace and
+For each method of --methods (the JAX runner's names; `zoo` is its ZOO
+list, JAX benchmarks/digits_real.py:171-172) and each shot it trains once
+with the JAX rows' flags (--dataset=omniglot --model=Conv4 --train_n_way=5
+--test_n_way=5 --n_shot=S --seed=1 --method=M, the default stop epoch;
+MAML at maml_budget_epochs, the baselines with --num_classes=4112 and
+trained once for all shots), writes the feature cache with save_features
+for the methods that test from it, then tests with --repeat reseeded runs
+of 600 episodes. For DKT, --dkt_variants adds the --laplace and
 --adaptation heads on the same checkpoint, --ece the calibration study
 (test_uncertainty at --episode_batch=32, as benchmarks/calibration.py
 runs it). Rows carry the JAX package's key names (benchmarks/report.json),
 with each run's wall time, and go to --report (digits_report.json beside
-this file by default) with the card's name and power limit. Runs on CUDA;
+this file by default) with the card's name and power limit, merged after
+every row; --skip_existing skips a (method, shot) whose accuracy row the
+report already holds, so one method can run per call. Runs on CUDA;
 `main(argv, device="cpu")` runs on the CPU.
 """
 from __future__ import annotations
@@ -38,6 +44,9 @@ import time
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+ZOO = ("protonet,DKT,matchingnet,relationnet,relationnet_softmax,"
+       "baseline,baseline++,maml_approx,maml")
+FROM_IMAGES = ("DKT", "maml", "maml_approx")
 DIGITS = os.path.join(HERE, "digits.npz")
 REPORT = os.path.join(HERE, "digits_report.json")
 
@@ -158,6 +167,14 @@ def make_cross_filelists(root: str, n_classes: int = 200,
                 label_names)
 
 
+def maml_budget_epochs(shot: int) -> int:
+    """MAML's --stop_epoch for episode-count parity with the other
+    methods' budgets (JAX benchmarks/digits_real.py:175-187): train
+    multiplies it by n_task = 32 on character data, at 4 batches an epoch,
+    so 15 -> 61,440 episodes at 1-shot and 10 -> 40,960 at 5-shot."""
+    return 15 if shot == 1 else 10
+
+
 def _record(path: str, update: dict) -> None:
     """Merge `update` into the report after every row, so that a run cut
     short keeps what it finished."""
@@ -172,31 +189,46 @@ def _record(path: str, update: dict) -> None:
 
 def main(argv=None, device=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--methods", default="DKT",
+                    help=f"comma list, or 'zoo' = {ZOO}")
     ap.add_argument("--shots", default="5")
     ap.add_argument("--repeat", type=int, default=3)
     ap.add_argument("--epochs", type=int, default=-1,
-                    help="-1 = the default stop epoch for the shot")
+                    help="-1 = the default stop epoch for the method/shot")
     ap.add_argument("--n_iter", type=int, default=600,
                     help="test episodes a run")
     ap.add_argument("--cross", action="store_true")
     ap.add_argument("--dkt_variants", action="store_true",
-                    help="also test the --laplace and --adaptation heads")
+                    help="also test DKT's --laplace and --adaptation heads")
     ap.add_argument("--ece", action="store_true",
-                    help="also run the calibration study")
+                    help="also run DKT's calibration study")
+    ap.add_argument("--skip_existing", action="store_true",
+                    help="skip a method and shot whose accuracy row is "
+                         "already in the report")
     ap.add_argument("--root", default=None,
                     help="working directory (default: a temporary one)")
     ap.add_argument("--report", default=REPORT)
     args = ap.parse_args(argv)
+    methods = (ZOO if args.methods == "zoo" else args.methods).split(",")
 
-    from .. import test, test_uncertainty, train
+    from .. import save_features, test, test_uncertainty, train
     from .._device import card_line, resolve_device
 
     device = resolve_device(device)
     report = os.path.abspath(args.report)
     card = card_line() if device.type == "cuda" else "cpu"
     tag = "digits_cross" if args.cross else "digits_real"
+    existing = {}
+    if os.path.exists(report):
+        with open(report) as f:
+            existing = json.load(f)
     _record(report, {f"{tag}_card": card})
     rows: dict = {}
+
+    def record(row: dict) -> None:
+        rows.update(row)
+        _record(report, row)
+
     cwd = os.getcwd()
     workdir = (contextlib.nullcontext(args.root) if args.root
                else tempfile.TemporaryDirectory())
@@ -205,58 +237,79 @@ def main(argv=None, device=None) -> dict:
         (make_cross_filelists if args.cross else make_digits_filelists)(root)
         os.chdir(root)
         try:
-            for shot in (int(s) for s in args.shots.split(",")):
-                common = ["--dataset=omniglot", "--model=Conv4",
-                          "--train_n_way=5", "--test_n_way=5",
-                          f"--n_shot={shot}", "--seed=1", "--method=DKT"]
-                t0 = time.perf_counter()
-                train.main(common + ([f"--stop_epoch={args.epochs}"]
-                                     if args.epochs != -1 else []),
-                           device=device)
-                train_s = time.perf_counter() - t0
-                heads = [("dkt", [])]
-                if args.dkt_variants:
-                    heads += [("dkt_laplace", ["--laplace"]),
-                              ("dkt_adaptation", ["--adaptation"])]
-                for name, flags in heads:
-                    key = f"{tag}_{name}_5way_{shot}shot"
-                    t0 = time.perf_counter()
-                    acc, ci, runs = test.main(
-                        common + [f"--repeat={args.repeat}",
-                                  f"--n_iter={args.n_iter}"] + flags,
-                        device=device, return_runs=True)
-                    row = {f"{key}_acc": acc, f"{key}_ci95": ci,
-                           f"{key}_seed_std": float(np.std(runs)),
-                           f"{key}_test_s": time.perf_counter() - t0}
-                    if name == "dkt":
-                        row[f"{key}_train_s"] = train_s
-                    rows.update(row)
-                    _record(report, row)
-                    print(f"== {key}: {acc:.2f}% +- {ci:.2f}% (seed std "
-                          f"{np.std(runs):.2f}) [{card}]", flush=True)
-                if args.ece:
-                    key = f"{tag}_ece_dkt_{shot}shot"
-                    t0 = time.perf_counter()
-                    out = test_uncertainty.main(
-                        common + [f"--repeat={args.repeat}",
-                                  f"--n_iter={args.n_iter}",
-                                  "--episode_batch=32"], device=device)
-                    row = {f"{key}_raw": out["ece_raw"],
-                           f"{key}_raw_std": out["ece_raw_std"],
-                           f"{key}_cal": out["ece_cal"],
-                           f"{key}_cal_std": out["ece_cal_std"],
-                           f"{key}_temp": out["temperature"],
-                           f"{key}_acc": out["acc"],
-                           f"{key}_s": time.perf_counter() - t0}
-                    rows.update(row)
-                    _record(report, row)
-                    print(f"== {key}: raw {out['ece_raw']:.4f}, calibrated "
-                          f"{out['ece_cal']:.4f}, T {out['temperature']:.3f} "
-                          f"[{card}]", flush=True)
+            trained: set = set()  # a baseline's checkpoint has no shot
+            for method in methods:
+                for shot in (int(s) for s in args.shots.split(",")):
+                    key = f"{tag}_{method.lower()}_5way_{shot}shot"
+                    if args.skip_existing and f"{key}_acc" in existing:
+                        print(f"-- skip {key} (in the report)", flush=True)
+                        continue
+                    _run_method(method, shot, key, tag, args, device, card,
+                                trained, record, train, save_features, test,
+                                test_uncertainty)
         finally:
             os.chdir(cwd)
     print(json.dumps(rows))
     return rows
+
+
+def _run_method(method, shot, key, tag, args, device, card, trained, record,
+                train, save_features, test, test_uncertainty) -> None:
+    """Train (once for a baseline), cache the features where the method
+    tests from them, test, and record the rows of one method and shot."""
+    common = ["--dataset=omniglot", "--model=Conv4", "--train_n_way=5",
+              "--test_n_way=5", f"--n_shot={shot}", "--seed=1",
+              f"--method={method}"]
+    is_baseline = method in ("baseline", "baseline++")
+    epochs = args.epochs
+    if epochs == -1 and method in ("maml", "maml_approx"):
+        epochs = maml_budget_epochs(shot)
+    row = {}
+    if not (is_baseline and method in trained):
+        t0 = time.perf_counter()
+        train.main(common + ([f"--stop_epoch={epochs}"] if epochs != -1
+                             else [])
+                   + (["--num_classes=4112"] if is_baseline else []),
+                   device=device)
+        row[f"{key}_train_s"] = time.perf_counter() - t0
+        if method not in FROM_IMAGES:
+            t0 = time.perf_counter()
+            save_features.main(common + ["--split=novel"], device=device)
+            row[f"{key}_features_s"] = time.perf_counter() - t0
+        trained.add(method)
+    heads = [(method.lower(), [])]
+    if method == "DKT" and args.dkt_variants:
+        heads += [("dkt_laplace", ["--laplace"]),
+                  ("dkt_adaptation", ["--adaptation"])]
+    for name, flags in heads:
+        head_key = f"{tag}_{name}_5way_{shot}shot"
+        t0 = time.perf_counter()
+        acc, ci, runs = test.main(
+            common + [f"--repeat={args.repeat}", f"--n_iter={args.n_iter}"]
+            + flags, device=device, return_runs=True)
+        row.update({f"{head_key}_acc": acc, f"{head_key}_ci95": ci,
+                    f"{head_key}_seed_std": float(np.std(runs)),
+                    f"{head_key}_test_s": time.perf_counter() - t0})
+        record(row)
+        row = {}
+        print(f"== {head_key}: {acc:.2f}% +- {ci:.2f}% (seed std "
+              f"{np.std(runs):.2f}) [{card}]", flush=True)
+    if method == "DKT" and args.ece:
+        ece_key = f"{tag}_ece_dkt_{shot}shot"
+        t0 = time.perf_counter()
+        out = test_uncertainty.main(
+            common + [f"--repeat={args.repeat}", f"--n_iter={args.n_iter}",
+                      "--episode_batch=32"], device=device)
+        record({f"{ece_key}_raw": out["ece_raw"],
+                f"{ece_key}_raw_std": out["ece_raw_std"],
+                f"{ece_key}_cal": out["ece_cal"],
+                f"{ece_key}_cal_std": out["ece_cal_std"],
+                f"{ece_key}_temp": out["temperature"],
+                f"{ece_key}_acc": out["acc"],
+                f"{ece_key}_s": time.perf_counter() - t0})
+        print(f"== {ece_key}: raw {out['ece_raw']:.4f}, calibrated "
+              f"{out['ece_cal']:.4f}, T {out['temperature']:.3f} [{card}]",
+              flush=True)
 
 
 if __name__ == "__main__":

@@ -122,12 +122,14 @@ class DeviceDataset:
         # each unique (path, label) once: a path listed under two classes
         # stages twice, as the streaming loader emits it under both
         paths: list[str] = []
+        labels: list[int] = []
         path_id: dict[tuple[str, int], int] = {}
         for c in classes:
             for p in sub[c]:
                 if (p, c) not in path_id:
                     path_id[(p, c)] = len(paths)
                     paths.append(p)
+                    labels.append(c)
 
         t0 = time.perf_counter()
         host, cache_key = _stage_cache_load(data_file, paths, image_size,
@@ -153,6 +155,7 @@ class DeviceDataset:
             table[ci] = np.tile(ids, -(-width // len(ids)))[:width]
 
         self.canvas = canvas
+        self.image_labels = np.asarray(labels, np.int32)  # staged order
         self.images = _to_device(host, self.device)    # [n_img, H, W, 3] u8
         self.table = torch.from_numpy(table).to(self.device)
         self.counts = torch.from_numpy(counts).to(self.device)

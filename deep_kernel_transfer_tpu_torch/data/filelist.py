@@ -8,8 +8,8 @@ base/val/novel.json:
 `EpisodicDataLoader` yields [B, n_way, S+Q, H, W, C] uint8 numpy batches
 from a background thread. Its numpy RandomState draws are the JAX package's, in
 the same order, so a seed gives the very same episodes in both packages.
-`SimpleDataLoader` (flat minibatches for baseline pretraining) waits for
-ROADMAP queue A, item 7.
+`SimpleDataLoader` yields the baseline pretraining's flat (images,
+labels) minibatches, with the JAX package's draws as well.
 """
 from __future__ import annotations
 
@@ -36,6 +36,32 @@ class FileListMeta:
         for name, label in zip(self.image_names, self.image_labels):
             sub.setdefault(int(label), []).append(name)
         return sub
+
+
+class SimpleDataLoader:
+    """Shuffled flat (images [b, H, W, C] uint8, labels [b]) minibatches
+    (reference SimpleDataset + SimpleDataManager, data/dataset.py:10-26,
+    data/datamgr.py:54-66; JAX data/filelist.py:46-71): one permutation of
+    the split per epoch from a numpy RandomState, and a last partial
+    batch."""
+
+    def __init__(self, data_file: str, image_size: int, batch_size: int,
+                 aug: bool, seed: int = 0):
+        self.meta = FileListMeta(data_file)
+        self.batch_size = batch_size
+        self.transform = TransformPipeline(image_size, aug, seed=seed)
+        self.rng = np.random.RandomState(seed)
+
+    def __len__(self) -> int:
+        return -(-len(self.meta.image_names) // self.batch_size)
+
+    def __iter__(self) -> Iterator[tuple[np.ndarray, np.ndarray]]:
+        order = self.rng.permutation(len(self.meta.image_names))
+        for i in range(len(self)):
+            idx = order[i * self.batch_size:(i + 1) * self.batch_size]
+            imgs = np.stack([self.transform.load(self.meta.image_names[j])
+                             for j in idx])
+            yield imgs, self.meta.image_labels[idx]
 
 
 class EpisodicDataLoader:

@@ -3,17 +3,18 @@
 Port of deep_kernel_transfer_tpu/factory.py:26-220 (reference
 train.py:73-182, test.py:73-115) for DKT: filelist resolution with the
 cross / cross_char settings, image-size rules, default epoch schedules,
-the checkpoint-directory naming that test.py relies on, and the DKT
-method. The other methods wait for ROADMAP queue A, item 7; more than one
-device for item 9.
+the checkpoint-directory naming that test.py relies on, and every
+classification method (with the MAML omniglot overrides). More than one
+device waits for ROADMAP queue A, item 9.
 """
 from __future__ import annotations
 
 import os
 
 from . import configs
-from .methods import DKT
-from .models.backbones import model_dict
+from .methods import DKT, MAML, BaselineTrain, MatchingNet, ProtoNet, RelationNet
+from .models import backbones
+from .models.backbones import feat_dims, model_dict, np_feat_shapes
 
 
 def _fallback(path: str) -> str:
@@ -125,15 +126,58 @@ def kernel_type(params) -> str:
 
 
 def build_method(params, n_way: int, n_support: int, device=None):
-    """The method object (reference train.py:115-174): DKT."""
-    if params.method != "DKT":
-        raise NotImplementedError(
-            f"method '{params.method}' is not ported yet (ROADMAP queue A, "
-            "item 7)")
-    return DKT(model_dict[params.model](), n_way, n_support,
-               kernel_type=kernel_type(params),
-               feature_dtype=getattr(params, "feature_dtype", "bfloat16"),
-               device=device)
+    """The method object for classification (reference train.py:115-174;
+    JAX factory.py:153-206)."""
+    model_fn = model_dict[params.model]
+    method = params.method
+    fdtype = getattr(params, "feature_dtype", "bfloat16")
+    if method in ("baseline", "baseline++"):
+        # the base-class label ids must fit the head (reference
+        # train.py:119-123)
+        min_classes = {"omniglot": 4112, "cross_char": 1597}.get(
+            params.dataset)
+        if min_classes is not None and params.num_classes < min_classes:
+            raise ValueError(
+                f"--num_classes must be >= {min_classes} for "
+                f"{params.dataset} (max base-class label id; reference "
+                "train.py:119-123)")
+        return BaselineTrain(
+            model_fn(), params.num_classes,
+            loss_type="dist" if method == "baseline++" else "softmax",
+            device=device)
+    if method == "DKT":
+        return DKT(model_fn(), n_way, n_support,
+                   kernel_type=kernel_type(params), feature_dtype=fdtype,
+                   device=device)
+    if method == "protonet":
+        return ProtoNet(model_fn(), n_way, n_support, feature_dtype=fdtype,
+                        device=device)
+    if method == "matchingnet":
+        return MatchingNet(model_fn(), feat_dims[params.model], n_way,
+                           n_support, feature_dtype=fdtype, device=device)
+    if method in ("relationnet", "relationnet_softmax"):
+        backbone, shape_key = relation_backbone(params.model)
+        return RelationNet(
+            backbone, np_feat_shapes[shape_key], n_way, n_support,
+            loss_type="mse" if method == "relationnet" else "softmax",
+            feature_dtype=fdtype, device=device)
+    if method in ("maml", "maml_approx"):
+        kwargs = dict(approx=method == "maml_approx")
+        if params.dataset in ("omniglot", "cross_char"):
+            # reference train.py:169-172
+            kwargs.update(n_task=32, task_update_num=1, train_lr=0.1)
+        return MAML(model_fn(), n_way, n_support, device=device, **kwargs)
+    raise ValueError(f"Unknown method {params.method}")
+
+
+def relation_backbone(model: str):
+    """(trunk, np_feat_shapes key) of RelationNet: the no-pool form of a
+    Conv trunk, or an unflattened ResNet (reference train.py:145-151)."""
+    np_name = {"Conv4": "Conv4NP", "Conv6": "Conv6NP",
+               "Conv4S": "Conv4SNP"}.get(model)
+    if np_name is not None:
+        return getattr(backbones, np_name)(), np_name
+    return model_dict[model](flatten=False), model
 
 
 def checkpoint_dir(params) -> str:

@@ -1,9 +1,9 @@
 """CLI argument surface: a copy of deep_kernel_transfer_tpu/io_utils.py
 :15-89 (reference io_utils.py:17-64), the same flags and defaults, so a
 command line of the JAX package's train.py or test.py runs the port's
-`python -m deep_kernel_transfer_tpu_torch.train` or `.test` unchanged.
-Flags the port does not serve yet raise in the entry points (factory.py,
-train.py, test.py), not here.
+`python -m deep_kernel_transfer_tpu_torch.train`, `.save_features` or
+`.test` unchanged. Flags the port does not serve yet raise in the entry
+points (factory.py), not here.
 """
 from __future__ import annotations
 
@@ -62,6 +62,11 @@ def parse_args(script: str, argv=None):
         parser.add_argument("--n_train_episodes", default=100, type=int,
                             help="episodes per training epoch (reference "
                                  "fixes 100, data/datamgr.py:69)")
+    elif script == "save_features":
+        parser.add_argument("--split", default="novel", help="base/val/novel")
+        parser.add_argument("--save_iter", default=-1, type=int,
+                            help="save feature from the model trained in x epoch, "
+                                 "use the best model if x is -1")
     elif script == "test":
         parser.add_argument("--split", default="novel", help="base/val/novel")
         parser.add_argument("--save_iter", default=-1, type=int,

@@ -1,13 +1,17 @@
 """Episodic method scaffolding: episode helpers, the trunk's mixed-precision
-law, BatchNorm running-average merge and the training-step body.
+law, BatchNorm running-average merge, the training-step body and the
+generic episodic contract of the comparison methods.
 
-Port of deep_kernel_transfer_tpu/methods/base.py:27-138, with `ci95`.
+Port of deep_kernel_transfer_tpu/methods/base.py:27-219, with `ci95`.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn as nn
+import torch.nn.functional as F
 
+from .._device import resolve_device
 from ..models.backbones import preprocess_input
 
 
@@ -80,3 +84,130 @@ def train_step_body(method, xb: torch.Tensor) -> dict:
     method.optimizer.step()
     merge_stats(stats)
     return {"loss": loss.detach()}
+
+
+class EpisodicMethod(nn.Module):
+    """The episodic contract of the comparison methods (JAX
+    methods/base.py:141-219; reference meta_template.py:45-100).
+
+    A subclass holds its trunk as `feature` and defines
+    `reset_parameters(example_episode, generator)`,
+    `scores_from_features(z)` (features [B, n_way, S+Q, ...] -> scores
+    [B, n_way*Q, n_way]) and, where its loss is not the cross-entropy of
+    those scores, `batch_losses_train`. The trunk runs once over the flat
+    episode batch, with per-episode BatchNorm statistics in train mode
+    (ep_groups=B), which is what the JAX package's vmap over episodes
+    computes. One Adam at `lr` over every parameter (reference
+    train.py:40)."""
+
+    def __init__(self, n_way: int, n_support: int, lr: float = 1e-3,
+                 feature_dtype: str = "bfloat16", device=None):
+        super().__init__()
+        self.device = resolve_device(device)
+        self.n_way = n_way
+        self.n_support = n_support
+        self.lr = lr
+        self.feature_dtype = getattr(torch, feature_dtype)
+        self.optimizer = None
+
+    def init(self, example_episode: torch.Tensor, generator=None):
+        """Initialise every parameter for episodes shaped like
+        example_episode [n_way, S+Q, H, W, C] (content ignored), from
+        `generator`, and a fresh optimizer. Returns self."""
+        self.reset_parameters(example_episode, generator)
+        self.to(self.device)
+        self.optimizer = torch.optim.Adam(self.parameters(), lr=self.lr,
+                                          betas=(0.9, 0.999), eps=1e-8)
+        return self
+
+    def batch_features(self, xb: torch.Tensor, train: bool = False):
+        """(features [B, n_way, S+Q, ...], stats) of episodes xb [B, n_way,
+        S+Q, H, W, C]: one trunk forward over the flat batch."""
+        xb = xb.to(self.device)
+        lead = xb.shape[:3]
+        z, stats = apply_trunk(self.feature,
+                               xb.reshape((-1,) + tuple(xb.shape[3:])),
+                               train, dtype=self.feature_dtype,
+                               ep_groups=lead[0] if train else 1)
+        return z.reshape(lead + tuple(z.shape[1:])), stats
+
+    def query_labels(self, n_way: int, n_query: int) -> torch.Tensor:
+        return episode_labels(n_way, n_query, self.device)
+
+    def batch_losses_train(self, xb: torch.Tensor):
+        """(per-episode losses [B], stats): the cross-entropy of the query
+        scores in train mode."""
+        z, stats = self.batch_features(xb, train=True)
+        scores = self.scores_from_features(z)
+        y = self.query_labels(xb.shape[1], xb.shape[2] - self.n_support)
+        return episode_cross_entropy(scores, y), stats
+
+    def batch_loss_train(self, xb: torch.Tensor):
+        """(mean over episodes of the loss, BatchNorm stats)."""
+        losses, stats = self.batch_losses_train(xb)
+        return losses.mean(), stats
+
+    def batch_loss(self, xb: torch.Tensor) -> torch.Tensor:
+        return self.batch_loss_train(xb)[0]
+
+    def episode_loss(self, x: torch.Tensor) -> torch.Tensor:
+        return self.batch_loss(x[None])
+
+    def train_step(self, xb: torch.Tensor) -> dict:
+        return train_step_body(self, xb.to(self.device))
+
+    @torch.no_grad()
+    def batch_scores(self, xb: torch.Tensor) -> torch.Tensor:
+        """[B, n_way*Q, n_way] scores, eval-mode BatchNorm."""
+        return self.scores_from_features(self.batch_features(xb)[0])
+
+    def correct(self, x: torch.Tensor) -> tuple[float, int]:
+        """(top-1 correct, count) on one episode [n_way, S+Q, ...]."""
+        n_way, n_query = x.shape[0], x.shape[1] - self.n_support
+        pred = torch.argmax(self.batch_scores(x[None])[0], dim=-1)
+        y = self.query_labels(n_way, n_query)
+        return float((pred == y).sum()), n_way * n_query
+
+    def batch_correct(self, xb: torch.Tensor) -> torch.Tensor:
+        """Per-episode query accuracy in percent, [B]."""
+        return query_accuracy(torch.argmax(self.batch_scores(xb), dim=-1),
+                              xb.shape[1])
+
+
+def episode_nll(logp: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Per-episode mean negative log-likelihood [B] of log-probabilities
+    logp [B, M, W] of labels y [M] (or [B, M])."""
+    return -logp.gather(-1, y.expand(logp.shape[:-1])[..., None])[
+        ..., 0].mean(-1)
+
+
+def episode_cross_entropy(scores: torch.Tensor,
+                          y: torch.Tensor) -> torch.Tensor:
+    """Per-episode mean softmax cross-entropy [B] of scores [B, M, W]
+    against labels y [M] (or [B, M])."""
+    return episode_nll(F.log_softmax(scores, dim=-1), y)
+
+
+def query_accuracy(pred: torch.Tensor, n_way: int) -> torch.Tensor:
+    """Per-episode accuracy in percent [B] of the class ids pred
+    [B, n_way*Q]."""
+    y = episode_labels(n_way, pred.shape[-1] // n_way, pred.device)
+    return torch.mean((pred == y).to(torch.float32), dim=-1) * 100.0
+
+
+def torch_sgd_step(params: list, grads: list, bufs: list, first: bool,
+                   lr: float = 0.01, momentum: float = 0.9,
+                   dampening: float = 0.9,
+                   weight_decay: float = 1e-3) -> tuple[list, list]:
+    """One step of torch.optim.SGD(lr, momentum, dampening, weight_decay)
+    written on tensors, the finetuning optimizer of the reference
+    (baselinefinetune.py:37, relationnet.py:52): g += wd·p; buf = g on the
+    first step, else momentum·buf + (1 - dampening)·g; p -= lr·buf.
+    Returns (new params, new bufs)."""
+    new_p, new_b = [], []
+    for p, g, b in zip(params, grads, bufs):
+        g = g + weight_decay * p
+        b = g if first else momentum * b + (1.0 - dampening) * g
+        new_p.append(p - lr * b)
+        new_b.append(b)
+    return new_p, new_b

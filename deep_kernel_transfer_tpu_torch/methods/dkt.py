@@ -41,7 +41,7 @@ from ..models.backbones import EpisodicBatchNorm
 from ..ops.fused_mll import fused_linear_mll, supports
 from ..utils.adam import Adam
 from .base import (apply_trunk, episode_labels, flatten_episode,
-                   one_vs_rest_targets, train_step_body)
+                   one_vs_rest_targets, query_accuracy, train_step_body)
 
 
 def add_bn_out(backbone: nn.Module, dim: int) -> nn.Module:
@@ -327,14 +327,8 @@ class DKT(nn.Module):
     @torch.no_grad()
     def batch_correct(self, xb: torch.Tensor) -> torch.Tensor:
         """Per-episode query accuracy in percent, [B]."""
-        return self._query_accuracy(
+        return query_accuracy(
             torch.argmax(self.batch_scores(xb), dim=-1), xb.shape[1])
-
-    def _query_accuracy(self, pred: torch.Tensor, n_way: int) -> torch.Tensor:
-        """Per-episode accuracy in percent [B] of the class ids pred
-        [B, n_way*Q]."""
-        y = episode_labels(n_way, pred.shape[-1] // n_way, pred.device)
-        return torch.mean((pred == y).to(torch.float32), dim=1) * 100.0
 
     # -- the Laplace head (reference methods/DKT.py:207-222) ---------------
 
@@ -375,7 +369,7 @@ class DKT(nn.Module):
         dkt.py:388-400)."""
         xb = xb.to(self.device)
         n_way, n_total = xb.shape[1], xb.shape[2]
-        return self._query_accuracy(
+        return query_accuracy(
             self._laplace_pred(self._batch_features(xb), n_way, n_total),
             n_way)
 
@@ -427,5 +421,5 @@ class DKT(nn.Module):
         gp = self.adapt_gp(xb, steps, lr, z_all=z_all)
         with torch.no_grad():
             logits = self._logits_from_features(z_all, n_way, n_total, gp=gp)
-        return self._query_accuracy(
+        return query_accuracy(
             torch.argmax(torch.sigmoid(logits), dim=-1), n_way)

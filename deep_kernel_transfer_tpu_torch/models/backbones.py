@@ -1,18 +1,23 @@
-"""Conv4 and Conv4S trunks with per-episode BatchNorm.
+"""The backbone zoo with per-episode BatchNorm.
 
-Port of deep_kernel_transfer_tpu/models/backbones.py (`preprocess_input`,
-the fan-in init, `EpisodicBatchNorm`, `ConvBlock`, `ConvNet`, `ConvNetS`,
-`Conv4`, `Conv4S`, `model_dict`), which rebuilds reference
-backbone.py:105-132, 250-310.
+Port of deep_kernel_transfer_tpu/models/backbones.py:184-509
+(`preprocess_input`, the fan-in init, `EpisodicBatchNorm`, `ConvBlock`,
+the Conv4/Conv6 trunks with their no-pool "NP" and single-channel "S"
+forms, `SimpleBlock`, `BottleneckBlock`, `ResNet` 10-101, `DistLinear`,
+`model_dict`, `feat_dims`, `np_feat_shapes`), which rebuilds reference
+backbone.py:13-376.
 
 Inputs keep the JAX layout, images [N, H, W, C] (uint8 or already
 normalised float); inside the trunk activations are NCHW. The flattened
 output is in torch's CHW order, as the reference's is (the JAX package
-flattens HWC; utils/convert.py permutes between the two).
+flattens HWC; utils/convert.py permutes between the two). The NP trunks
+return maps [N, C, H, W].
 
-Submodules carry the reference's state_dict names: `trunk.{i}.C` (conv),
-`trunk.{i}.BN` (BatchNorm), and `trunk.bn_out` once methods/dkt.py adds
-the bncossim head.
+Submodules carry the reference's state_dict names: `trunk.{i}.C` (conv)
+and `trunk.{i}.BN` in the Conv trunks; `trunk.0` (stem conv), `trunk.1`
+(its BatchNorm) and `trunk.{4+j}.{C1,BN1,C2,BN2,C3,BN3,shortcut,
+BNshortcut}` in the ResNets; `trunk.bn_out` once methods/dkt.py adds the
+bncossim head.
 
 Every layer takes (x, train, ep_groups, stats):
   * train=True normalises by batch statistics and, when `stats` is a dict,
@@ -123,19 +128,38 @@ class EpisodicBatchNorm(nn.Module):
         return (y * w + b).to(x.dtype)
 
 
-class ConvBlock(nn.Module):
-    """3x3 conv + BN + ReLU (+ 2x2 max-pool), reference backbone.py:105-132."""
+def lecun_normal_(weight: torch.Tensor, fan_in: int, generator=None) -> None:
+    """flax's lecun_normal in place: a normal truncated to +-2 standard
+    deviations, std sqrt(1/fan_in) / .87962566103423978."""
+    std = math.sqrt(1.0 / fan_in) / .87962566103423978
+    with torch.no_grad():
+        nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std,
+                              generator=generator)
 
-    def __init__(self, in_dim: int, out_dim: int, pool: bool = True):
+
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d with the trunk layers' signature; the weights are cast to
+    the input's dtype."""
+
+    def forward(self, x, train=True, ep_groups=1, stats=None):
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv2d(x, self.weight.to(x.dtype), bias, self.stride,
+                        self.padding)
+
+
+class ConvBlock(nn.Module):
+    """3x3 conv + BN + ReLU (+ 2x2 max-pool), reference backbone.py:105-132;
+    padding 0 in the first two blocks of the NP trunks."""
+
+    def __init__(self, in_dim: int, out_dim: int, pool: bool = True,
+                 padding: int = 1):
         super().__init__()
-        self.C = nn.Conv2d(in_dim, out_dim, 3, padding=1)
+        self.C = Conv2d(in_dim, out_dim, 3, padding=padding)
         self.BN = EpisodicBatchNorm(out_dim)
         self.pool = pool
 
     def forward(self, x, train=True, ep_groups=1, stats=None):
-        x = F.conv2d(x, self.C.weight.to(x.dtype), self.C.bias.to(x.dtype),
-                     padding=self.C.padding)
-        x = F.relu(self.BN(x, train, ep_groups, stats))
+        x = F.relu(self.BN(self.C(x), train, ep_groups, stats))
         if self.pool:
             x = F.max_pool2d(x, 2, 2)
         return x
@@ -148,43 +172,45 @@ class Flatten(nn.Module):
         return x.reshape(x.shape[0], -1)
 
 
-class ConvNet(nn.Module):
-    """Conv4/Conv6 trunk (reference backbone.py:250-268): `depth` blocks of
-    64 channels, max-pool in the first four. Input [N, H, W, C]; output
-    [N, 64*h*w] (84x84 -> 5x5x64 = 1600).
+class ReLU(nn.Module):
+    def forward(self, x, train=True, ep_groups=1, stats=None):
+        return F.relu(x)
 
-    first_channel=True is the omniglot trunk ConvNetS (reference
-    backbone.py:287-310; JAX backbones.py:220-236): only the first input
-    channel goes in, 28x28 -> 1x1x64 = 64."""
 
-    def __init__(self, depth: int, first_channel: bool = False):
-        super().__init__()
-        self.depth = depth
-        self.first_channel = first_channel
-        in_dim = 1 if first_channel else 3
-        blocks = [ConvBlock(in_dim if i == 0 else 64, 64, pool=(i < 4))
-                  for i in range(depth)]
-        self.trunk = nn.ModuleList(blocks + [Flatten()])
-        self.reset_parameters()
+class MaxPool(nn.Module):
+    """The ResNet stem's 3x3 max-pool, stride 2, padding 1."""
 
-    def out_chw(self, height: int, width: int) -> tuple[int, int, int]:
-        """(C, H, W) of the last block's output for an image of that size."""
-        for i in range(self.depth):
-            if i < 4:
-                height, width = height // 2, width // 2
-        return 64, height, width
+    def forward(self, x, train=True, ep_groups=1, stats=None):
+        return F.max_pool2d(x, 3, 2, padding=1)
 
-    def out_dim(self, height: int, width: int) -> int:
-        return math.prod(self.out_chw(height, width))
+
+class GlobalAvgPool(nn.Module):
+    """Mean over H and W: [N, C, H, W] -> [N, C] (the reference's
+    AvgPool2d(7) + Flatten at 224 px)."""
+
+    def forward(self, x, train=True, ep_groups=1, stats=None):
+        return x.mean(dim=(2, 3))
+
+
+class Trunk(nn.Module):
+    """What every trunk shares: `trunk`, a list of layers run in order
+    after the input is preprocessed and moved to NCHW, and the init."""
+
+    first_channel = False
 
     def reset_parameters(self, generator=None) -> None:
-        """Fan-in conv init from `generator`, zero biases, unit BN."""
+        """Fan-in conv init from `generator`, zero conv biases, unit BN."""
         for m in self.modules():
-            if isinstance(m, ConvBlock):
-                conv_fanin_init_(m.C.weight, generator)
-                nn.init.zeros_(m.C.bias)
+            if isinstance(m, nn.Conv2d):
+                conv_fanin_init_(m.weight, generator)
+                if m.bias is not None:
+                    nn.init.zeros_(m.bias)
             elif isinstance(m, EpisodicBatchNorm):
                 m.reset_parameters()
+
+    def out_dim(self, height: int, width: int) -> int:
+        """Width of the flat output for an image of that size."""
+        return math.prod(self.out_chw(height, width))
 
     def forward(self, x, train=True, ep_groups=1, stats=None):
         """Preprocess NHWC images, go to NCHW, run every layer of `trunk`."""
@@ -197,21 +223,232 @@ class ConvNet(nn.Module):
         return x
 
 
+class ConvNet(Trunk):
+    """Conv4/Conv6 trunk (reference backbone.py:250-268): `depth` blocks of
+    64 channels, max-pool in the first four. Input [N, H, W, C]; output
+    [N, 64*h*w] (84x84 -> 5x5x64 = 1600).
+
+    first_channel=True is the omniglot trunk ConvNetS (reference
+    backbone.py:287-310; JAX backbones.py:220-236): only the first input
+    channel goes in, 28x28 -> 1x1x64 = 64.
+
+    nopool=True is the RelationNet trunk ConvNetNopool / ConvNetSNopool
+    (JAX backbones.py:203-218, 239-253): max-pool and padding 0 in blocks
+    0 and 1 only, and no flattening: maps [N, 64, h, w] (84 px -> 19x19,
+    28 px -> 5x5)."""
+
+    def __init__(self, depth: int, first_channel: bool = False,
+                 nopool: bool = False):
+        super().__init__()
+        self.depth = depth
+        self.first_channel = first_channel
+        self.nopool = nopool
+        in_dim = 1 if first_channel else 3
+        blocks = [ConvBlock(in_dim if i == 0 else 64, 64,
+                            pool=(i < 2) if nopool else (i < 4),
+                            padding=0 if nopool and i < 2 else 1)
+                  for i in range(depth)]
+        self.trunk = nn.ModuleList(blocks + ([] if nopool else [Flatten()]))
+        self.reset_parameters()
+
+    def out_chw(self, height: int, width: int) -> tuple[int, int, int]:
+        """(C, H, W) of the last block's output for an image of that size."""
+        for block in self.trunk[:self.depth]:
+            pad = block.C.padding[0]
+            height, width = height + 2 * pad - 2, width + 2 * pad - 2
+            if block.pool:
+                height, width = height // 2, width // 2
+        return 64, height, width
+
+
+class SimpleBlock(nn.Module):
+    """ResNet basic block (reference backbone.py:135-185; JAX
+    backbones.py:256-291)."""
+
+    def __init__(self, in_dim: int, out_dim: int, half_res: bool):
+        super().__init__()
+        stride = 2 if half_res else 1
+        self.C1 = Conv2d(in_dim, out_dim, 3, stride, padding=1, bias=False)
+        self.BN1 = EpisodicBatchNorm(out_dim)
+        self.C2 = Conv2d(out_dim, out_dim, 3, padding=1, bias=False)
+        self.BN2 = EpisodicBatchNorm(out_dim)
+        if in_dim != out_dim:
+            self.shortcut = Conv2d(in_dim, out_dim, 1, stride, bias=False)
+            self.BNshortcut = EpisodicBatchNorm(out_dim)
+        else:
+            self.shortcut = None
+
+    def forward(self, x, train=True, ep_groups=1, stats=None):
+        h = F.relu(self.BN1(self.C1(x), train, ep_groups, stats))
+        h = self.BN2(self.C2(h), train, ep_groups, stats)
+        s = x if self.shortcut is None else self.BNshortcut(
+            self.shortcut(x), train, ep_groups, stats)
+        return F.relu(h + s)
+
+
+class BottleneckBlock(nn.Module):
+    """ResNet bottleneck block (reference backbone.py:190-247; JAX
+    backbones.py:293-334). Two quirks of the reference are kept: the 3x3
+    conv keeps its bias, and the 1x1 shortcut has no BatchNorm."""
+
+    def __init__(self, in_dim: int, out_dim: int, half_res: bool):
+        super().__init__()
+        mid = out_dim // 4
+        stride = 2 if half_res else 1
+        self.C1 = Conv2d(in_dim, mid, 1, bias=False)
+        self.BN1 = EpisodicBatchNorm(mid)
+        self.C2 = Conv2d(mid, mid, 3, stride, padding=1)
+        self.BN2 = EpisodicBatchNorm(mid)
+        self.C3 = Conv2d(mid, out_dim, 1, bias=False)
+        self.BN3 = EpisodicBatchNorm(out_dim)
+        self.shortcut = (Conv2d(in_dim, out_dim, 1, stride, bias=False)
+                         if in_dim != out_dim else None)
+
+    def forward(self, x, train=True, ep_groups=1, stats=None):
+        h = F.relu(self.BN1(self.C1(x), train, ep_groups, stats))
+        h = F.relu(self.BN2(self.C2(h), train, ep_groups, stats))
+        h = self.BN3(self.C3(h), train, ep_groups, stats)
+        s = x if self.shortcut is None else self.shortcut(x)
+        return F.relu(h + s)
+
+
+class ResNet(Trunk):
+    """ResNet trunk for 224x224 inputs (reference backbone.py:330-376; JAX
+    backbones.py:336-364): the 7x7/2 stem conv, BN, ReLU and a 3x3/2
+    max-pool with padding 1 (trunk.0-3), then the blocks (trunk.4 on),
+    `half_res` on the first block of stages 2-4, and with `flatten` the
+    mean over the final map (224 px -> 7x7 -> [N, C])."""
+
+    def __init__(self, block, num_layers, out_dims, flatten: bool = True):
+        super().__init__()
+        self.num_layers = tuple(num_layers)
+        self.out_dims = tuple(out_dims)
+        self.flatten = flatten
+        layers = [Conv2d(3, 64, 7, 2, padding=3, bias=False),
+                  EpisodicBatchNorm(64), ReLU(), MaxPool()]
+        in_dim = 64
+        for i, (n, out_dim) in enumerate(zip(num_layers, out_dims)):
+            for j in range(n):
+                layers.append(block(in_dim, out_dim, i >= 1 and j == 0))
+                in_dim = out_dim
+        if flatten:
+            layers.append(GlobalAvgPool())
+        self.trunk = nn.ModuleList(layers)
+        self.reset_parameters()
+
+    def out_chw(self, height: int, width: int) -> tuple[int, int, int]:
+        """(C, H, W) of the last block's map for an image of that size;
+        the flat output (with `flatten`) is its C channel means."""
+        def half(s):
+            return (s - 1) // 2 + 1
+
+        height, width = half(half(height)), half(half(width))  # stem, pool
+        for _ in self.out_dims[1:]:
+            height, width = half(height), half(width)
+        return self.out_dims[-1], height, width
+
+    def out_dim(self, height: int, width: int) -> int:
+        c, h, w = self.out_chw(height, width)
+        return c if self.flatten else c * h * w
+
+
+class DistLinear(nn.Module):
+    """Weight-normalised cosine classifier head of Baseline++ (reference
+    backbone.py:22-44; JAX backbones.py:403-429): scores = s·cos(x, w_c),
+    w_c = v_c/(|v_c| + 1e-5)·g_c, x/(|x| + 1e-5), s = 2 for at most 200
+    classes, else 10. The parameters are the reference's WeightNorm names,
+    `L.weight_v` [out, in] and `L.weight_g` [out, 1]."""
+
+    def __init__(self, in_dim: int, out_dim: int):
+        super().__init__()
+        self.L = nn.Module()
+        self.L.weight_v = nn.Parameter(torch.empty(out_dim, in_dim))
+        self.L.weight_g = nn.Parameter(torch.ones(out_dim, 1))
+        self.scale_factor = 2.0 if out_dim <= 200 else 10.0
+        self.reset_parameters()
+
+    def reset_parameters(self, generator=None) -> None:
+        lecun_normal_(self.L.weight_v, self.L.weight_v.shape[1], generator)
+        with torch.no_grad():
+            self.L.weight_g.fill_(1.0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x_n = x / (torch.linalg.vector_norm(x, dim=-1, keepdim=True) + 1e-5)
+        v = self.L.weight_v
+        w = v / (torch.linalg.vector_norm(v, dim=1, keepdim=True) + 1e-5) \
+            * self.L.weight_g
+        return self.scale_factor * (x_n @ w.T)
+
+
 def Conv4() -> ConvNet:
     return ConvNet(depth=4)
+
+
+def Conv6() -> ConvNet:
+    return ConvNet(depth=6)
 
 
 def Conv4S() -> ConvNet:
     return ConvNet(depth=4, first_channel=True)
 
 
+def Conv4NP() -> ConvNet:
+    return ConvNet(depth=4, nopool=True)
+
+
+def Conv6NP() -> ConvNet:
+    return ConvNet(depth=6, nopool=True)
+
+
+def Conv4SNP() -> ConvNet:
+    return ConvNet(depth=4, first_channel=True, nopool=True)
+
+
+def ResNet10(flatten: bool = True) -> ResNet:
+    return ResNet(SimpleBlock, [1, 1, 1, 1], [64, 128, 256, 512], flatten)
+
+
+def ResNet18(flatten: bool = True) -> ResNet:
+    return ResNet(SimpleBlock, [2, 2, 2, 2], [64, 128, 256, 512], flatten)
+
+
+def ResNet34(flatten: bool = True) -> ResNet:
+    return ResNet(SimpleBlock, [3, 4, 6, 3], [64, 128, 256, 512], flatten)
+
+
+def ResNet50(flatten: bool = True) -> ResNet:
+    return ResNet(BottleneckBlock, [3, 4, 6, 3], [256, 512, 1024, 2048],
+                  flatten)
+
+
+def ResNet101(flatten: bool = True) -> ResNet:
+    return ResNet(BottleneckBlock, [3, 4, 23, 3], [256, 512, 1024, 2048],
+                  flatten)
+
+
 class _ModelDict(dict):
-    """The CLI's `--model` names (JAX backbones.py:476); a name of the JAX
-    zoo not ported yet raises."""
+    """The CLI's `--model` names (JAX backbones.py:476-489); the regression
+    trunks Conv3 and MLP2 are not ported yet and raise."""
 
     def __missing__(self, name):
-        raise NotImplementedError(
-            f"backbone '{name}' is not ported yet (ROADMAP queue A, item 6)")
+        if name in ("Conv3", "MLP2"):
+            raise NotImplementedError(
+                f"backbone '{name}' belongs to the regression track, not "
+                "ported yet (ROADMAP queue A, item 8)")
+        raise KeyError(name)
 
 
-model_dict = _ModelDict(Conv4=Conv4, Conv4S=Conv4S)
+model_dict = _ModelDict(Conv4=Conv4, Conv4S=Conv4S, Conv6=Conv6,
+                        ResNet10=ResNet10, ResNet18=ResNet18,
+                        ResNet34=ResNet34, ResNet50=ResNet50,
+                        ResNet101=ResNet101)
+
+# width of the flat features (reference backbone.py:264,304,368)
+feat_dims = {"Conv4": 1600, "Conv4S": 64, "Conv6": 1600, "ResNet10": 512,
+             "ResNet18": 512, "ResNet34": 512, "ResNet50": 2048,
+             "ResNet101": 2048}
+
+# the NP trunks' maps, (C, H, W) in the port's NCHW layout (the JAX
+# package's np_feat_shapes hold the same maps as (H, W, C))
+np_feat_shapes = {"Conv4NP": (64, 19, 19), "Conv6NP": (64, 19, 19),
+                  "Conv4SNP": (64, 5, 5)}

@@ -1,20 +1,28 @@
-"""DKT evaluation CLI:
+"""Classification evaluation CLI:
 
     python -m deep_kernel_transfer_tpu_torch.test --dataset=miniImagenet \\
         --model=Conv4 --method=DKT --train_aug --episode_batch=32
 
-Port of the from-images DKT path of the JAX package's test.py:86-206 and
-:238-272 (reference test.py): --n_iter (600) episodes of n_query = 15 from
-the test split, the GP conditioned on each episode's support set,
-accuracy mean +- 1.96 std / sqrt(n); --repeat reseeded runs averaged; the
-result appended to record/results.txt. Episodes come from the split staged
-in device memory (--device_data) or from the host loader, which draws the
-JAX package's episodes for the same seed. DKT's test-time heads (JAX
-test.py:128-133,186-196): --laplace scores with the Laplace GP classifier,
---adaptation adapts each episode's GP hyperparameters for 100 Adam steps
-on its support set first. The feature-cache methods wait for ROADMAP
-queue A, item 7. Runs on CUDA; `main(argv, device="cpu")` runs on the
-CPU.
+Port of the JAX package's test.py:48-276 (reference test.py): --n_iter
+(600) episodes of n_query = 15 from the test split, accuracy mean +- 1.96
+std / sqrt(n); --repeat reseeded runs averaged; the result appended to
+record/results.txt.
+
+  * DKT and MAML score from images. Episodes come from the split staged in
+    device memory (--device_data) or from the host loader, which draws the
+    JAX package's episodes for the same seed. DKT's test-time heads (JAX
+    test.py:128-133,186-196): --laplace scores with the Laplace GP
+    classifier, --adaptation adapts each episode's GP hyperparameters for
+    100 Adam steps on its support set first. MAML's --adaptation takes 100
+    inner steps.
+  * Every other method scores episodes of the save_features cache, drawn
+    with the JAX package's numpy draws (`feature_evaluation`): the method's
+    scores_from_features; RelationNet's relation-module finetune under
+    --adaptation; the linear-probe finetune for the baselines and for the
+    other methods under --adaptation. The episodes are scored
+    FEATURE_BATCH at a time; the finetunes draw from a torch.Generator.
+
+Runs on CUDA; `main(argv, device="cpu")` runs on the CPU.
 """
 from __future__ import annotations
 
@@ -28,24 +36,40 @@ from . import factory
 from ._device import resolve_device
 from .data.device_dataset import (cached_dataset, fused_protocol_accs,
                                   make_fused_eval)
+from .data.feature_cache import init_loader, sample_feature_episode
 from .data.filelist import EpisodicDataLoader
 from .io_utils import parse_args
-from .methods.base import ci95
+from .methods.base import ci95, query_accuracy
+from .methods.baseline import finetune_scores
+from .models.backbones import model_dict
+from .save_features import feature_file_path
 from .train import _set_seed
 from .utils.checkpoint import load_checkpoint, resolve_checkpoint_file
+from .utils.convert import features_from_jax
 
 N_QUERY = 15  # reference test.py:142
 ADAPTATION_STEPS = 100  # JAX test.py:196
+FROM_IMAGES = ("DKT", "maml", "maml_approx")
+FEATURE_BATCH = 100  # feature episodes scored together
 
 
 def episode_scorer(model, params):
     """The batch -> per-episode accuracy% function of the chosen head."""
-    if params.laplace:
+    if params.method == "DKT" and params.laplace:
         return model.batch_correct_laplace
-    if params.adaptation:
+    if params.method == "DKT" and params.adaptation:
         return lambda xb: model.batch_correct_adapted(
             xb, steps=ADAPTATION_STEPS)
     return model.batch_correct
+
+
+def check_maml_ways(params) -> None:
+    """MAML's head has train_n_way outputs (reference maml.py:13,
+    change_way=False)."""
+    if (params.method in ("maml", "maml_approx")
+            and params.test_n_way != params.train_n_way):
+        raise ValueError("maml does not support test_n_way != train_n_way "
+                         "(reference change_way=False)")
 
 
 def load_model(params, seed: int, device):
@@ -56,6 +80,8 @@ def load_model(params, seed: int, device):
     factory.check_model_constraints(params)
     model = factory.build_method(params, params.train_n_way, params.n_shot,
                                  device)
+    if params.method in ("maml", "maml_approx") and params.adaptation:
+        model.task_update_num = ADAPTATION_STEPS  # reference test.py:158-159
     ckpt_file = resolve_checkpoint_file(factory.checkpoint_dir(params),
                                         params.save_iter)
     example = torch.zeros((params.train_n_way, params.n_shot + N_QUERY,
@@ -67,9 +93,61 @@ def load_model(params, seed: int, device):
     return model
 
 
+def feature_scorer(model, params):
+    """score(z, generator) -> [E, n_way*Q, n_way] for feature episodes z
+    [E, n_way, S+Q, ...] (JAX test.py:48-71)."""
+    if params.adaptation and params.method in ("relationnet",
+                                               "relationnet_softmax"):
+        return model.adapted_scores_from_features
+    if params.adaptation or params.method in ("baseline", "baseline++"):
+        loss_type = "dist" if params.method == "baseline++" else "softmax"
+        return lambda z, gen: finetune_scores(z, params.n_shot, loss_type,
+                                              gen)
+    return lambda z, gen: model.scores_from_features(z)
+
+
+def feature_layout(params):
+    """Feature episodes of the cache (JAX layout) -> the port's layout."""
+    if params.method in ("relationnet", "relationnet_softmax"):
+        return lambda z: features_from_jax(z, None, 0)
+    trunk = model_dict[params.model]()
+    size = factory.resolve_image_size(params)
+    return lambda z: features_from_jax(z, trunk, size)
+
+
+def feature_evaluation(cl_data, score, params, seed: int, device,
+                       to_port=lambda z: z) -> np.ndarray:
+    """Per-episode accuracy% [n_iter] of --n_iter episodes of the cache,
+    episode i drawn from RandomState(seed * 10000 + i) as the JAX package
+    draws it (test.py:74-83)."""
+    n_way, n_support = params.test_n_way, params.n_shot
+    gen = torch.Generator(device=device).manual_seed(seed)
+    accs = []
+    for j in range(0, params.n_iter, FEATURE_BATCH):
+        z = np.stack([sample_feature_episode(
+            cl_data, np.random.RandomState(seed * 10000 + i), n_way,
+            n_support, N_QUERY)
+            for i in range(j, min(j + FEATURE_BATCH, params.n_iter))])
+        z = torch.from_numpy(to_port(z)).to(device)
+        with torch.no_grad():
+            accs.append(query_accuracy(torch.argmax(score(z, gen), dim=-1),
+                                       n_way))
+    return torch.cat(accs).cpu().numpy()
+
+
 def single_test(params, seed: int, device) -> tuple[float, float]:
     """One evaluation run -> (accuracy %, its 95% half-width)."""
     _set_seed(seed)
+    check_maml_ways(params)
+    if params.method not in FROM_IMAGES:
+        factory.check_model_constraints(params)
+        cl_data = init_loader(feature_file_path(params))
+        model = (None if params.method in ("baseline", "baseline++")
+                 else load_model(params, seed, device))
+        accs = feature_evaluation(cl_data, feature_scorer(model, params),
+                                  params, seed, device,
+                                  feature_layout(params))
+        return float(accs.mean()), ci95(accs)
     n_way, n_support = params.test_n_way, params.n_shot
     model = load_model(params, seed, device)
     image_size = factory.resolve_image_size(params)
@@ -103,10 +181,6 @@ def main(argv=None, device=None, return_runs: bool = False):
     with return_runs the runs' accuracies as a third item (JAX
     test.py:238-276)."""
     params = parse_args("test", argv)
-    if params.method != "DKT":
-        raise NotImplementedError(
-            f"method '{params.method}' is not ported yet (ROADMAP queue A, "
-            "item 7)")
     factory.check_devices(params)
     device = resolve_device(device)
     accs, cis = [], []

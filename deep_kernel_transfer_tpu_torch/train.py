@@ -1,17 +1,26 @@
-"""DKT meta-training CLI:
+"""Classification training CLI:
 
     python -m deep_kernel_transfer_tpu_torch.train --dataset=miniImagenet \\
         --model=Conv4 --method=DKT --train_aug --episode_batch=32
 
-Port of the DKT branch of the JAX package's train.py:109-376 (reference
-train.py:24-219): the same flags, dataset, image-size and epoch rules,
-checkpoint directory and best-model choice. Episodes come either from the
-splits staged in device memory (--device_data, sampled and, with
---train_aug, augmented on the card) or streamed from the host loader.
-Each epoch starts a fresh Adam (reset_opt_state), logs the GP telemetry
-every 10 batches, validates, and saves best_model.tar and <epoch>.tar in
-the reference's torch layout. Runs on CUDA; `main(argv, device="cpu")`
-runs on the CPU.
+Port of the JAX package's train.py:57-376 (reference train.py:24-219):
+the same flags, dataset, image-size and epoch rules, checkpoint directory
+and best-model choice, for every classification method.
+
+  * baseline / baseline++ (`train_baseline`): flat minibatches of 16 over
+    the base split's classes from the host loader, no validation, the last
+    model is the best.
+  * every episodic method (`train_meta`): episodes from the splits staged
+    in device memory (--device_data, sampled and, with --train_aug,
+    augmented on the card) or streamed from the host loader; validation on
+    the val split each epoch; best_model.tar at the first epoch that beats
+    all earlier ones. MAML takes n_task episodes a step and n_task times
+    the epochs (reference train.py:163-167). DKT starts each epoch with a
+    fresh Adam (reset_opt_state) and logs its GP telemetry every 10
+    batches. --warmup starts the trunk from the baseline's checkpoint.
+
+Checkpoints are in the reference's torch layout. Runs on CUDA;
+`main(argv, device="cpu")` runs on the CPU.
 """
 from __future__ import annotations
 
@@ -22,13 +31,15 @@ import random
 import numpy as np
 import torch
 
-from . import factory
+from . import configs, factory
 from ._device import resolve_device
 from .data.device_dataset import (cached_dataset, fused_protocol_accs,
                                   make_fused_epoch, make_fused_eval)
-from .data.filelist import EpisodicDataLoader
+from .data.filelist import EpisodicDataLoader, SimpleDataLoader
 from .io_utils import parse_args
-from .utils.checkpoint import get_resume_file, load_checkpoint, save_checkpoint
+from .methods import MAML
+from .utils.checkpoint import (get_resume_file, load_checkpoint,
+                               save_checkpoint, warmup_from_baseline)
 from .utils.logger import MetricsLogger
 
 PRINT_FREQ = 10
@@ -52,6 +63,52 @@ def _profile(profile_dir: str, device: torch.device):
                    on_trace_ready=tensorboard_trace_handler(profile_dir))
 
 
+def _resume(params, model, ckpt_dir, image_size) -> int:
+    """The first epoch to run: after the latest <epoch>.tar with
+    --resume."""
+    if params.resume:
+        resume_file = get_resume_file(ckpt_dir)
+        if resume_file is not None:
+            epoch = load_checkpoint(resume_file, model, image_size)
+            print(f"resumed from {resume_file} (epoch {epoch})")
+            return epoch + 1
+    return params.start_epoch
+
+
+def train_baseline(params, base_file, image_size, stop_epoch, ckpt_dir,
+                   device):
+    """Softmax or cosine pretraining over the base classes (reference
+    train.py:37-67, baselinetrain.py:31-43; JAX train.py:57-106)."""
+    loader = SimpleDataLoader(base_file, image_size, batch_size=16,
+                              aug=params.train_aug, seed=params.seed)
+    model = factory.build_method(params, params.train_n_way, params.n_shot,
+                                 device)
+    x0, _ = next(iter(loader))  # the JAX package's first draw, for its shape
+    model.init(torch.from_numpy(x0),
+               torch.Generator().manual_seed(params.seed))
+    start_epoch = _resume(params, model, ckpt_dir, image_size)
+    for epoch in range(start_epoch, stop_epoch):
+        profiling = params.profile_dir and epoch == start_epoch
+        total, i = 0.0, 0
+        with (_profile(params.profile_dir, device) if profiling
+              else contextlib.nullcontext()):
+            for x, y in loader:
+                m = model.train_step(torch.from_numpy(x), torch.from_numpy(y))
+                total = total + m["loss"]
+                i += 1
+                if i % PRINT_FREQ == 0:
+                    print(f"Epoch {epoch} | Batch {i}/{len(loader)} | Loss "
+                          f"{float(total) / i:.6f}", flush=True)
+        # no validation protocol (reference baselinetrain.py:51)
+        if epoch % params.save_freq == 0 or epoch == stop_epoch - 1:
+            save_checkpoint(os.path.join(ckpt_dir, f"{epoch}.tar"), model,
+                            epoch)
+    # the last model is the best one (test's get_best_file)
+    save_checkpoint(os.path.join(ckpt_dir, "best_model.tar"), model,
+                    stop_epoch - 1)
+    return model
+
+
 def train_meta(params, base_file, val_file, image_size, stop_epoch, ckpt_dir,
                device):
     n_way, n_support = params.train_n_way, params.n_shot
@@ -59,8 +116,14 @@ def train_meta(params, base_file, val_file, image_size, stop_epoch, ckpt_dir,
     test_way = params.test_n_way
     episode_batch = params.episode_batch
     n_episodes = params.n_train_episodes
-    n_batches = -(-n_episodes // episode_batch)
     model = factory.build_method(params, n_way, n_support, device)
+    if isinstance(model, MAML):
+        # n_task episodes a step, and n_task times the epochs (reference
+        # train.py:163-167; JAX train.py:115-121)
+        episode_batch = model.n_task
+        stop_epoch = stop_epoch * model.n_task
+    n_batches = -(-n_episodes // episode_batch)
+    is_dkt = hasattr(model, "train_telemetry")
 
     fused_chunk = fused_val = None
     if factory.use_device_data(params, base_file, image_size,
@@ -90,18 +153,19 @@ def train_meta(params, base_file, val_file, image_size, stop_epoch, ckpt_dir,
                            3), dtype=torch.uint8)
     model.init(example, torch.Generator().manual_seed(params.seed))
 
-    start_epoch = params.start_epoch
-    if params.resume:
-        resume_file = get_resume_file(ckpt_dir)
-        if resume_file is not None:
-            epoch = load_checkpoint(resume_file, model, image_size)
-            start_epoch = epoch + 1
-            print(f"resumed from {resume_file} (epoch {epoch})")
+    start_epoch = _resume(params, model, ckpt_dir, image_size)
+    if not params.resume and params.warmup:
+        # reference train.py:198-201: <model>_baseline[_aug], no way/shot
+        warmup_from_baseline(os.path.join(
+            configs.save_dir, "checkpoints", params.dataset,
+            f"{params.model}_baseline" + ("_aug" if params.train_aug else "")),
+            model)
 
     logger = MetricsLogger(os.path.join(ckpt_dir, "log"))
     max_acc = 0.0
     for epoch in range(start_epoch, stop_epoch):
-        model.reset_opt_state()  # reference DKT.py:114-115
+        if is_dkt:
+            model.reset_opt_state()  # reference DKT.py:114-115
         # losses stay on the device between print boundaries: reading one
         # back every step would make the host wait for the card each time
         losses, extra, last_m, i = [], {}, None, 0
@@ -110,6 +174,10 @@ def train_meta(params, base_file, val_file, image_size, stop_epoch, ckpt_dir,
             nonlocal extra
             extra = {k: float(v) for k, v in m.items() if k != "loss"}
             avg_loss = float(torch.cat(losses).mean())
+            if not is_dkt:
+                print(f"Epoch {epoch} | Batch {i}/{n_batches} | Loss "
+                      f"{avg_loss:.6f}", flush=True)
+                return
             tele = model.train_telemetry(xb)
             acc_s = float(tele["GP_support_accuracy"])
             acc_q = float(tele["GP_query_accuracy"])
@@ -180,17 +248,9 @@ def train_meta(params, base_file, val_file, image_size, stop_epoch, ckpt_dir,
 
 
 def main(argv=None, device=None):
-    """Parse the flags and meta-train; returns the trained model. `device`
+    """Parse the flags and train; returns the trained model. `device`
     None means CUDA (raising without a CUDA device)."""
     params = parse_args("train", argv)
-    if params.method != "DKT":
-        raise NotImplementedError(
-            f"method '{params.method}' is not ported yet (ROADMAP queue A, "
-            "item 7)")
-    if params.warmup:
-        raise NotImplementedError(
-            "--warmup needs baseline pretraining, not ported yet (ROADMAP "
-            "queue A, item 7)")
     factory.check_devices(params)
     device = resolve_device(device)
     _set_seed(params.seed)
@@ -204,6 +264,9 @@ def main(argv=None, device=None):
     os.makedirs(ckpt_dir, exist_ok=True)
     print(f"checkpoint dir: {ckpt_dir} | epochs: {stop_epoch} | device: "
           f"{device}")
+    if params.method in ("baseline", "baseline++"):
+        return train_baseline(params, base_file, image_size, stop_epoch,
+                              ckpt_dir, device)
     return train_meta(params, base_file, val_file, image_size, stop_epoch,
                       ckpt_dir, device)
 

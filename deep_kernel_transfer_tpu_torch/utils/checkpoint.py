@@ -6,18 +6,21 @@ are found as the reference finds them (io_utils.py:66-86; JAX
 checkpoint.py:96-136).
 
 A file is `torch.save({'epoch': e, 'state': sd})` with `sd` in the
-reference DKT's state_dict layout (reference methods/DKT.py:337-378):
-the trunk's keys as the port has them (feature.trunk.{i}.C.*,
-feature.trunk.{i}.BN.*, feature.trunk.bn_out.*), and each way's GP as
-gpytorch names it, model.models.{w}.mean_module.constant,
+reference's state_dict layout of the method (JAX utils/torch_export.py
+:227-338): the port's modules carry the reference's names (feature.*,
+classifier.*, G_encoder.*, FCE.lstmcell.*, relation_module.*), and a DKT's
+per-way GP is written as gpytorch names it (reference methods/DKT.py
+:337-378), model.models.{w}.mean_module.constant,
 model.models.{w}.covar_module.raw_outputscale and
 model.models.{w}.covar_module.base_kernel.raw_{variance|lengthscale|offset}.
-That is the layout the JAX package imports (utils/torch_import.py
-:327-357), so its test.py evaluates a checkpoint of the port's train.
+That is the layout the JAX package imports (utils/torch_import.py), so its
+test.py evaluates a checkpoint of the port's train.
 
 `load_checkpoint` reads that layout, and also the JAX package's own npz
 checkpoints (leaves keyed by their keystr path, JAX checkpoint.py:28-41),
-parsed without JAX and loaded through utils/convert.dkt_params_from_jax.
+parsed without JAX and loaded through utils/convert.params_from_jax.
+`warmup_from_baseline` and `load_backbone_from` graft a checkpoint's trunk
+into another model (JAX checkpoint.py:139-222).
 """
 from __future__ import annotations
 
@@ -31,7 +34,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .convert import dkt_params_from_jax
+from .convert import backbone_state_from_jax, params_from_jax
 
 # gpytorch's name and shape of each base-kernel parameter
 _BASE_SHAPES = {"raw_variance": (1,), "raw_lengthscale": (1, 1),
@@ -48,11 +51,11 @@ def _gp_key(w: int, leaf: str) -> str:
 
 
 def _reference_state(model) -> dict[str, torch.Tensor]:
-    """The reference layout of a DKT's state_dict, on the CPU."""
+    """The reference layout of a method's state_dict, on the CPU."""
     out = {}
     for name, value in model.state_dict().items():
         value = value.detach().cpu()
-        if name.startswith("feature."):
+        if not name.startswith("gp."):
             out[name] = value.clone()
             continue
         leaf = name.removeprefix("gp.")
@@ -81,7 +84,7 @@ def _load_reference(path: str, model) -> int:
     state = blob["state"]
     sd = {}
     for name, value in model.state_dict().items():
-        if name.startswith("feature."):
+        if not name.startswith("gp."):
             sd[name] = state[name]
             continue
         leaf = name.removeprefix("gp.")
@@ -95,6 +98,11 @@ def _load_reference(path: str, model) -> int:
     model.load_state_dict({k: v.to(model.device) for k, v in sd.items()},
                           strict=True)
     return int(blob.get("epoch", -1))
+
+
+def _read_npz(path: str) -> tuple[dict, int]:
+    with np.load(path, allow_pickle=False) as z:
+        return _npz_tree(z), int(z["__epoch__"])
 
 
 _KEYSTR = re.compile(r"\['([^']*)'\]")
@@ -119,15 +127,62 @@ def _npz_tree(z) -> dict:
 
 def load_checkpoint(path: str, model, image_size: int) -> int:
     """Load a reference-layout torch checkpoint, or a JAX npz checkpoint of
-    a DKT, into `model` (init-ed for the same backbone, kernel type and
+    the same method, into `model` (init-ed for the same backbone, heads and
     image size). Returns the checkpoint's epoch."""
     if _is_torch_checkpoint(path):
         return _load_reference(path, model)
-    with np.load(path, allow_pickle=False) as z:
-        epoch = int(z["__epoch__"])
-        tree = _npz_tree(z)
-    dkt_params_from_jax(tree, model, image_size)
+    tree, epoch = _read_npz(path)
+    params_from_jax(tree, model, image_size)
     return epoch
+
+
+def _jax_trunk_vars(tree: dict) -> dict:
+    """The trunk's flax variables in a JAX method's params tree: under
+    net/backbone (baseline, MAML), feature/backbone (DKT) or feature."""
+    def split(node: dict, key: str) -> dict:
+        out = {"params": node["params"][key]}
+        if key in node.get("batch_stats", {}):
+            out["batch_stats"] = node["batch_stats"][key]
+        return out
+
+    if "net" in tree:
+        return split(tree["net"], "backbone")
+    feat = tree["feature"]
+    return split(feat, "backbone") if "backbone" in feat["params"] else feat
+
+
+def load_backbone_from(path: str, trunk) -> int:
+    """Graft the trunk of the checkpoint at `path` (reference layout, its
+    `feature.` keys; or a JAX npz) into `trunk`: every entry of the trunk's
+    state_dict that the checkpoint holds with the same shape. Raises when
+    there is none. Returns the number of entries loaded."""
+    if _is_torch_checkpoint(path):
+        state = torch.load(path, map_location="cpu", weights_only=True)
+        src = {k.removeprefix("feature."): v for k, v in
+               state["state"].items() if k.startswith("feature.")}
+    else:
+        src = {k: torch.from_numpy(v) for k, v in backbone_state_from_jax(
+            _jax_trunk_vars(_read_npz(path)[0]), trunk, "").items()}
+    own = trunk.state_dict()
+    hits = {k: v for k, v in src.items()
+            if k in own and tuple(v.shape) == tuple(own[k].shape)}
+    if not hits:
+        raise ValueError(f"no trunk entries of {path} fit the model")
+    device = next(trunk.parameters()).device
+    trunk.load_state_dict({k: v.to(device) for k, v in hits.items()},
+                          strict=False)
+    print(f"loaded {len(hits)} trunk entries from {path}")
+    return len(hits)
+
+
+def warmup_from_baseline(warm_dir: str, model) -> int:
+    """The --warmup of train: the trunk of the baseline's best (or latest)
+    checkpoint in warm_dir into model.feature (reference train.py:198-217;
+    JAX checkpoint.py:139-155)."""
+    src = get_best_file(warm_dir)
+    if src is None:
+        raise ValueError(f"no warmup checkpoint found in {warm_dir}")
+    return load_backbone_from(src, model.feature)
 
 
 # -- discovery (reference io_utils.py:66-86) --------------------------------
