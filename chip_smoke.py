@@ -55,7 +55,16 @@
    maml_approx, baseline, baseline++) through `train`, `save_features`
    and `test` (and `test --adaptation` for maml and relationnet) on a
    smaller set of the CLI phase's layout, Conv4 at 84 px: checkpoints,
-   caches, finite losses, accuracy above 50%, seconds of each part.
+   caches, finite losses, accuracy above 50%, seconds of each part;
+   then the regression track, which launches no kernel of the port (and
+   must not): the synthetic QMUL grid (29 people x 13 pitches x 19
+   angles of 100-px JPEGs), DKT rbf, DKT spectral and transfer on the CPU
+   against the card on one 24-person batch, `train_regression` (Conv3,
+   --task_batch=1) for 10 epochs each and `test_regression` on each
+   checkpoint, with ms a per-person and a batched step, s an epoch, peak
+   GiB and a profile of one epoch; and the sines scripts (train_DKT 1000
+   iterations with the 500-task eval, train_FT 1000 with 50 tasks,
+   train_MAML 200 meta-steps with 50 tasks).
 6. Prints one JSON line of kernel results, then as its last line
    {"ok": true, "device": {...}}.
 
@@ -1385,6 +1394,281 @@ def drive_zoo_path(device, card: str) -> None:
     if low:
         raise AssertionError(f"accuracy not above 50%: {low}")
 
+# -- the regression track ------------------------------------------------------
+
+REG_EPOCHS, REG_TEST_EPOCHS = 10, 10
+REG_KINDS = {"DKT rbf": ["--method=DKT"],
+             "DKT spectral": ["--method=DKT", "--spectral"],
+             "transfer": ["--method=transfer"]}
+
+
+def kernel_counters() -> list:
+    """Every kernel wrapper of the port, each with its launch count."""
+    from deep_kernel_transfer_tpu_torch.ops.blocked_cholesky import (
+        blocked_cholesky)
+    from deep_kernel_transfer_tpu_torch.ops.fused_mll import fused_linear_mll
+    from deep_kernel_transfer_tpu_torch.ops.hbm_cholesky import (
+        fused_gram_cholesky, fused_gram_cholesky_tiled, hbm_blocked_cholesky)
+
+    return [fused_linear_mll, blocked_cholesky, hbm_blocked_cholesky,
+            fused_gram_cholesky, fused_gram_cholesky_tiled]
+
+
+def recording_steps(classes_and_names, log: list):
+    """Wrap each class's step method to append (time, loss) to `log`;
+    returns a function that restores them."""
+    saved = []
+    for cls, name in classes_and_names:
+        step = getattr(cls, name)
+        saved.append((cls, name, step))
+
+        def wrapped(self, *a, _step=step):
+            out = _step(self, *a)
+            loss = out["loss"] if isinstance(out, dict) else out
+            log.append((time.perf_counter(), loss))
+            return out
+        setattr(cls, name, wrapped)
+
+    def restore():
+        for cls, name, step in saved:
+            setattr(cls, name, step)
+    return restore
+
+
+def check_regression_cpu_vs_card(device, card: str, xb, yb) -> None:
+    """DKT rbf, DKT spectral and transfer with the same weights (one seeded
+    init each, on the CPU and on the card) on the same 24-person batch:
+    the mean loss within 1e-4 relative and every gradient within 2e-2 of
+    the largest entry of the CPU's (a floor of 1e-6 of the largest
+    gradient of the model), the path's guard against TF32 and layout
+    slips."""
+    from deep_kernel_transfer_tpu_torch import train_regression
+    from deep_kernel_transfer_tpu_torch.io_utils import parse_args_regression
+
+    for kind, flags in REG_KINDS.items():
+        params = parse_args_regression("train_regression", flags)
+        out = []
+        for dev in ("cpu", device):
+            model = train_regression.init_regression_method(params, dev)
+            loss = model.batch_loss(xb.to(model.device), yb.to(model.device))
+            loss.backward()
+            loss = loss.detach()
+            out.append((loss.item(), {k: p.grad.detach().cpu().double()
+                                      for k, p in model.named_parameters()}))
+        (l_cpu, g_cpu), (l_dev, g_dev) = out
+        top = max(float(g.abs().max()) for g in g_cpu.values())
+        errs = {k: float((g_dev[k] - g).abs().max())
+                / max(float(g.abs().max()), 1e-6 * top)
+                for k, g in g_cpu.items()}
+        loss_err = abs(l_dev - l_cpu) / abs(l_cpu)
+        worst = max(errs, key=errs.get)
+        print(f"regression phase: {kind} CPU vs card: loss {l_cpu!r} / "
+              f"{l_dev!r} (relative {loss_err:.3e}), largest gradient "
+              f"difference {errs[worst]:.3e} ({worst}) [{card}]", flush=True)
+        if not loss_err < 1e-4 or not errs[worst] < 2e-2:
+            raise AssertionError(f"{kind}: the card disagrees with the CPU")
+
+
+def profile_regression_epoch(model, card: str) -> None:
+    """torch.profiler over one --task_batch=1 epoch of DKT (the draw, the
+    copy to the card, 24 per-person steps): device busy share of the wall,
+    the top device rows, and the host synchronisations (each
+    `aten::_local_scalar_dense` is one, psd_safe_cholesky's bool() among
+    them)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from deep_kernel_transfer_tpu_torch.data.qmul import get_batch, train_people
+
+    def epoch():
+        xb, yb = get_batch(train_people, np.random.RandomState(12345))
+        model.unbatched_train_step(torch.from_numpy(xb).to(model.device),
+                                   torch.from_numpy(yb).to(model.device))
+
+    epoch()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        epoch()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = prof.key_averages()
+    dev = sorted([e for e in rows if e.device_type == DeviceType.CUDA],
+                 key=lambda e: e.self_device_time_total, reverse=True)
+    busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
+    syncs = {e.key: (e.count, e.cpu_time_total / 1e3) for e in rows
+             if e.key in ("aten::_local_scalar_dense", "aten::item",
+                          "cudaStreamSynchronize", "cudaMemcpyAsync")}
+    print(f"regression phase: profile of one {model.kernel_type} epoch (24 "
+          f"per-person steps): wall {wall_ms:.1f} ms, device busy "
+          f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%); host syncs "
+          f"(calls, CPU ms) {syncs} [{card}]", flush=True)
+    for e in dev[:12]:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d} "
+              f"calls  {e.key[:100]}", flush=True)
+
+
+def drive_regression_path(device, card: str) -> None:
+    """The regression track at full width, cut in depth, in a temporary
+    working directory: the synthetic QMUL grid (29 people x 13 pitches x
+    19 angles, 100-px JPEGs of benchmarks/regression_real.py's
+    render_face, written by 8 threads); the CPU against the card on one
+    24-person batch; `train_regression.main` (Conv3, 24 people x 19 points,
+    --task_batch=1) for REG_EPOCHS epochs each of DKT rbf, DKT --spectral
+    and transfer, then `test_regression.main --n_support=5
+    --n_test_epochs=10` on each checkpoint, which must give the trained
+    model's own MSE; ms a per-person step and a batched 24-person step
+    (CUDA events), s an epoch, peak GiB, a profile of one epoch. Checks
+    finite losses, the reference layouts and that no kernel of the port
+    launched."""
+    from deep_kernel_transfer_tpu_torch import test_regression, train_regression
+    from deep_kernel_transfer_tpu_torch.benchmarks.regression_real import (
+        make_synthetic_qmul)
+    from deep_kernel_transfer_tpu_torch.data import qmul
+    from deep_kernel_transfer_tpu_torch.factory import regression_checkpoint_dir
+    from deep_kernel_transfer_tpu_torch.io_utils import parse_args_regression
+    from deep_kernel_transfer_tpu_torch.methods import (DKTRegression,
+                                                        FeatureTransfer)
+
+    counters = kernel_counters()
+    for c in counters:
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    log: list = []
+    restore = recording_steps([(DKTRegression, "unbatched_train_step"),
+                               (DKTRegression, "train_step"),
+                               (FeatureTransfer, "train_step")], log)
+    cwd = os.getcwd()
+    results = {}
+    with tempfile.TemporaryDirectory() as root:
+        try:
+            t0 = time.perf_counter()
+            n = make_synthetic_qmul(root, threads=8)
+            print(f"regression phase: synthetic QMUL grid, {n} JPEGs in "
+                  f"{time.perf_counter() - t0:.2f} s [{card}]", flush=True)
+            os.chdir(root)
+            xb, yb = qmul.get_batch(qmul.train_people,
+                                    np.random.RandomState(0))
+            xb, yb = torch.from_numpy(xb), torch.from_numpy(yb)
+            check_regression_cpu_vs_card(device, card, xb, yb)
+            for kind, flags in REG_KINDS.items():
+                log.clear()
+                t0 = time.perf_counter()
+                model = train_regression.main(
+                    flags + ["--seed=1", f"--stop_epoch={REG_EPOCHS}"])
+                torch.cuda.synchronize()
+                train_s = time.perf_counter() - t0
+                losses = [float(loss) for _, loss in log]
+                if len(losses) != REG_EPOCHS or not all(
+                        math.isfinite(v) for v in losses):
+                    raise AssertionError(f"{kind}: losses {losses}")
+                blob = torch.load(os.path.join(
+                    regression_checkpoint_dir(
+                        parse_args_regression("train_regression", flags)),
+                    "best_model.tar"), weights_only=True)
+                parts = ({"feature_extractor", "model"} if kind == "transfer"
+                         else {"gp", "likelihood", "net"})
+                if set(blob) != parts | {"epoch"}:
+                    raise AssertionError(f"{kind}: checkpoint {set(blob)}")
+                if kind == "transfer":  # the CLI adapts from a fresh Adam
+                    model.reset_optimizer()
+                own = test_regression.evaluate(model, 1, 5, REG_TEST_EPOCHS)
+                t0 = time.perf_counter()
+                mse = test_regression.main(
+                    flags + ["--seed=1", "--n_support=5",
+                             f"--n_test_epochs={REG_TEST_EPOCHS}"])
+                test_s = time.perf_counter() - t0
+                if not math.isfinite(mse[0]) or abs(mse[0] - own[0]) > (
+                        1e-5 * own[0]):
+                    raise AssertionError(f"{kind}: checkpoint MSE {mse}, "
+                                         f"trained model's {own}")
+                epoch_s = [b - a for (a, _), (b, _) in zip(log, log[1:])]
+                results[kind] = model
+                print(f"regression phase: {kind}: {model.step} steps in "
+                      f"{REG_EPOCHS} epochs, losses {losses[0]:.4f} -> "
+                      f"{losses[-1]:.4f}; train {train_s:.2f} s (an epoch "
+                      f"{statistics.median(epoch_s):.3f} s, median of the "
+                      f"last {len(epoch_s)}), test {test_s:.2f} s, MSE "
+                      f"{mse[0]:.4f} +- {mse[1]:.4f} (checkpoint read back: "
+                      f"{own[0]:.4f}) [{card}]", flush=True)
+            restore()
+            xd, yd = xb.to(device), yb.to(device)
+            for kind in ("DKT rbf", "DKT spectral"):
+                model = results[kind]
+                seq = cuda_ms(lambda: model.unbatched_train_step(xd, yd),
+                              iters=5, warmup=2) / 24
+                bat = cuda_ms(lambda: model.train_step(xd, yd), iters=10,
+                              warmup=2)
+                print(f"regression phase: {kind}: {seq:.3f} ms a per-person "
+                      f"step (--task_batch=1), {bat:.3f} ms a batched "
+                      f"24-person step (CUDA events) [{card}]", flush=True)
+            ft = results["transfer"]
+            print(f"regression phase: transfer: "
+                  f"{cuda_ms(lambda: ft.train_step(xd, yd), 10, 2):.3f} ms a "
+                  f"24-person step [{card}]", flush=True)
+            profile_regression_epoch(results["DKT spectral"], card)
+        finally:
+            restore()
+            os.chdir(cwd)
+            qmul._DECODE_CACHE._data.clear()
+            qmul._DECODE_CACHE._bytes = 0
+    launches = {c.__name__: c.launches for c in counters}
+    print(f"regression phase: peak {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          f" GiB; kernel launches {launches} [{card}]", flush=True)
+    if any(launches.values()):
+        raise AssertionError(f"the regression path launched {launches}")
+
+
+def drive_sines_path(device, card: str) -> None:
+    """The sines scripts through `main`, cut in depth: train_DKT (MLP2,
+    spectral 4 x 40) for 1000 iterations with the 500-task eval, train_FT
+    for 1000 iterations with a 50-task eval (100 finetune steps a task),
+    train_MAML for 200 meta-steps with a 50-task eval. Prints ms a step
+    (host clock between steps, each of which synchronises) and the MSEs;
+    no kernel of the port may launch."""
+    from deep_kernel_transfer_tpu_torch.methods import (DKTRegression,
+                                                        FeatureTransfer)
+    from deep_kernel_transfer_tpu_torch.sines import train_DKT, train_FT, train_MAML
+
+    counters = kernel_counters()
+    for c in counters:
+        c.launches = 0
+    runs = {"train_DKT": (train_DKT, ["--iterations=1000",
+                                      "--n_test_tasks=500"]),
+            "train_FT": (train_FT, ["--iterations=1000",
+                                    "--n_test_tasks=50"]),
+            "train_MAML": (train_MAML, ["--iterations=200",
+                                        "--n_test_tasks=50"])}
+    log: list = []
+    restore = recording_steps([(DKTRegression, "train_step"),
+                               (FeatureTransfer, "train_step"),
+                               (train_MAML.SinesMAML, "meta_step")], log)
+    cwd = os.getcwd()
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            os.chdir(root)
+            for name, (script, args) in runs.items():
+                log.clear()
+                t0 = time.perf_counter()
+                mses = script.main(args + ["--seed=1"])
+                wall = time.perf_counter() - t0
+                losses = [float(loss) for _, loss in log]
+                step_ms = (log[-1][0] - log[0][0]) / (len(log) - 1) * 1e3
+                if not all(math.isfinite(v) for v in losses + mses):
+                    raise AssertionError(f"{name}: non-finite loss or MSE")
+                print(f"sines phase: {name}: {len(log)} steps, {step_ms:.3f} "
+                      f"ms a step, losses {losses[0]:.4f} -> {losses[-1]:.4f}"
+                      f", MSE {np.mean(mses):.4f} +- {np.std(mses):.4f} over "
+                      f"{len(mses)} tasks, {wall:.1f} s in all [{card}]",
+                      flush=True)
+    finally:
+        restore()
+        os.chdir(cwd)
+    launches = {c.__name__: c.launches for c in counters}
+    if any(launches.values()):
+        raise AssertionError(f"the sines path launched {launches}")
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1445,6 +1729,9 @@ def main() -> int:
     drive_woodbury_path(device, card)
     torch.cuda.empty_cache()
     drive_zoo_path(device, card)
+    torch.cuda.empty_cache()
+    drive_regression_path(device, card)
+    drive_sines_path(device, card)
     for name, entry in kernels.items():
         entry["launches"] = launches[name]
 

@@ -2,8 +2,9 @@
 
 The JAX package `deep_kernel_transfer_tpu` stays the reference; this package
 mirrors its layout (`gp/`, `models/`, `methods/`, `ops/`, `data/`, `utils/`,
-the `train`, `save_features`, `test` and `test_uncertainty` CLIs) and
-imports none of it. Entry points run on CUDA unless the caller passes
-`device="cpu"`; the hand-written kernels live in `csrc/` and are built
-with nvcc at first use.
+`sines/`, the `train`, `save_features`, `test`, `test_uncertainty`,
+`train_regression` and `test_regression` CLIs) and imports none of it.
+Entry points run on CUDA unless the caller passes `device="cpu"`; the
+hand-written kernels live in `csrc/` and are built with nvcc at first
+use.
 """

@@ -3,8 +3,8 @@
 Port of deep_kernel_transfer_tpu/factory.py:26-220 (reference
 train.py:73-182, test.py:73-115) for DKT: filelist resolution with the
 cross / cross_char settings, image-size rules, default epoch schedules,
-the checkpoint-directory naming that test.py relies on, and every
-classification method (with the MAML omniglot overrides). More than one
+the checkpoint-directory naming that test.py and test_regression.py rely
+on, and every classification method (with the MAML omniglot overrides). More than one
 device waits for ROADMAP queue A, item 9.
 """
 from __future__ import annotations
@@ -190,3 +190,12 @@ def checkpoint_dir(params) -> str:
     if params.method not in ("baseline", "baseline++"):
         path += f"_{params.train_n_way}way_{params.n_shot}shot"
     return path
+
+
+def regression_checkpoint_dir(params) -> str:
+    """save/checkpoints/<ds>/<model>_<method>[_spectral] (reference
+    train_regression.py:19-22; JAX factory.py:223-229)."""
+    name = f"{params.model}_{params.method}"
+    if getattr(params, "spectral", False):
+        name += "_spectral"
+    return os.path.join(configs.save_dir, "checkpoints", params.dataset, name)

@@ -112,13 +112,15 @@ class ExactGP(NamedTuple):
         _, z = self.kernel.low_rank(params["kernel"], x[..., :1, :])
         return 2 * z.shape[-1] <= x.shape[-2]
 
-    def init(self, noise: float | None = None, device=None) -> dict:
+    def init(self, noise: float | None = None, device=None,
+             generator=None) -> dict:
         """Parameters on `device`: CUDA when None, raising when there is no
-        CUDA device; pass device='cpu' for the CPU."""
+        CUDA device; pass device='cpu' for the CPU. A kernel with random
+        parameters (the spectral mixture) draws them from `generator`."""
         device = resolve_device(device)
         return {
             "mean": constant_mean_init(device),
-            "kernel": self.kernel.init(device),
+            "kernel": self.kernel.init(device, generator),
             "likelihood": self.likelihood.init(noise, device),
         }
 

@@ -1,8 +1,9 @@
 """CLI argument surface: a copy of deep_kernel_transfer_tpu/io_utils.py
-:15-89 (reference io_utils.py:17-64), the same flags and defaults, so a
-command line of the JAX package's train.py or test.py runs the port's
-`python -m deep_kernel_transfer_tpu_torch.train`, `.save_features` or
-`.test` unchanged. Flags the port does not serve yet raise in the entry
+:15-116 (reference io_utils.py:17-64), the same flags and defaults, so a
+command line of the JAX package's train.py, test.py, train_regression.py
+or test_regression.py runs the port's `python -m
+deep_kernel_transfer_tpu_torch.train`, `.save_features`, `.test`,
+`.train_regression` or `.test_regression` unchanged. Flags the port does not serve yet raise in the entry
 points (factory.py), not here.
 """
 from __future__ import annotations
@@ -84,4 +85,32 @@ def parse_args(script: str, argv=None):
     else:
         raise ValueError("Unknown script")
 
+    return parser.parse_args(argv)
+
+
+def parse_args_regression(script: str, argv=None):
+    parser = argparse.ArgumentParser(description=f"few-shot script {script}")
+    parser.add_argument("--seed", default=0, type=int,
+                        help="Seed. Default: 0 (None)")
+    parser.add_argument("--model", default="Conv3", help="model: Conv{3} / MLP{2}")
+    parser.add_argument("--method", default="DKT", help="DKT / transfer")
+    parser.add_argument("--dataset", default="QMUL", help="QMUL / sines")
+    parser.add_argument("--spectral", action="store_true",
+                        help="Use a spectral covariance kernel function")
+    parser.add_argument("--task_batch", default=1, type=int,
+                        help="1 = one optimizer step per person, in order "
+                             "(the reference); any other value = one step "
+                             "on the mean over all the people")
+
+    if script == "train_regression":
+        parser.add_argument("--start_epoch", default=0, type=int, help="Starting epoch")
+        parser.add_argument("--stop_epoch", default=100, type=int, help="Stopping epoch")
+        parser.add_argument("--resume", action="store_true",
+                            help="continue from previous trained model with largest epoch")
+    elif script == "test_regression":
+        parser.add_argument("--n_support", default=5, type=int,
+                            help="Number of points on trajectory to be given "
+                                 "as support points")
+        parser.add_argument("--n_test_epochs", default=10, type=int,
+                            help="How many test people?")
     return parser.parse_args(argv)

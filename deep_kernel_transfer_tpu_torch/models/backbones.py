@@ -3,9 +3,10 @@
 Port of deep_kernel_transfer_tpu/models/backbones.py:184-509
 (`preprocess_input`, the fan-in init, `EpisodicBatchNorm`, `ConvBlock`,
 the Conv4/Conv6 trunks with their no-pool "NP" and single-channel "S"
-forms, `SimpleBlock`, `BottleneckBlock`, `ResNet` 10-101, `DistLinear`,
-`model_dict`, `feat_dims`, `np_feat_shapes`), which rebuilds reference
-backbone.py:13-376.
+forms, `SimpleBlock`, `BottleneckBlock`, `ResNet` 10-101, the regression
+trunks `Conv3` and `MLP2`, `DistLinear`, `model_dict`, `feat_dims`,
+`np_feat_shapes`), which rebuilds reference backbone.py:13-402 and the
+sines feature net (reference sines/train_DKT.py:113-124).
 
 Inputs keep the JAX layout, images [N, H, W, C] (uint8 or already
 normalised float); inside the trunk activations are NCHW. The flattened
@@ -17,7 +18,7 @@ Submodules carry the reference's state_dict names: `trunk.{i}.C` (conv)
 and `trunk.{i}.BN` in the Conv trunks; `trunk.0` (stem conv), `trunk.1`
 (its BatchNorm) and `trunk.{4+j}.{C1,BN1,C2,BN2,C3,BN3,shortcut,
 BNshortcut}` in the ResNets; `trunk.bn_out` once methods/dkt.py adds the
-bncossim head.
+bncossim head; `layer{1,2,3}` in Conv3 and `layer{1,2}` in MLP2.
 
 Every layer takes (x, train, ep_groups, stats):
   * train=True normalises by batch statistics and, when `stats` is a dict,
@@ -36,6 +37,8 @@ import math
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ..gp.kernels import full_f32
 
 # ImageNet statistics (reference data/datamgr.py:15)
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -144,7 +147,7 @@ class Conv2d(nn.Conv2d):
     def forward(self, x, train=True, ep_groups=1, stats=None):
         bias = None if self.bias is None else self.bias.to(x.dtype)
         return F.conv2d(x, self.weight.to(x.dtype), bias, self.stride,
-                        self.padding)
+                        self.padding, self.dilation)
 
 
 class ConvBlock(nn.Module):
@@ -426,27 +429,90 @@ def ResNet101(flatten: bool = True) -> ResNet:
                   flatten)
 
 
-class _ModelDict(dict):
-    """The CLI's `--model` names (JAX backbones.py:476-489); the regression
-    trunks Conv3 and MLP2 are not ported yet and raise."""
+class Conv3(nn.Module):
+    """The QMUL regression trunk (reference backbone.py:379-402; JAX
+    backbones.py:366-387): three 3x3 convs of 36 channels, dilation 2,
+    stride 2, no padding, each followed by ReLU, no BatchNorm; 100 px ->
+    9x9x36 = 2916 features, flattened in CHW order. uint8 images are
+    scaled by 1/255 only (QMUL has no ImageNet normalisation, reference
+    data/qmul_loader.py)."""
 
-    def __missing__(self, name):
-        if name in ("Conv3", "MLP2"):
-            raise NotImplementedError(
-                f"backbone '{name}' belongs to the regression track, not "
-                "ported yet (ROADMAP queue A, item 8)")
-        raise KeyError(name)
+    input_rank = 3  # an input is [H, W, C]
+
+    def __init__(self):
+        super().__init__()
+        self.layer1 = Conv2d(3, 36, 3, stride=2, dilation=2)
+        self.layer2 = Conv2d(36, 36, 3, stride=2, dilation=2)
+        self.layer3 = Conv2d(36, 36, 3, stride=2, dilation=2)
+        self.reset_parameters()
+
+    def reset_parameters(self, generator=None) -> None:
+        """Fan-in conv weights from `generator`, zero biases (JAX
+        backbones.py:63-70)."""
+        for conv in (self.layer1, self.layer2, self.layer3):
+            conv_fanin_init_(conv.weight, generator)
+            nn.init.zeros_(conv.bias)
+
+    def out_chw(self, height: int, width: int) -> tuple[int, int, int]:
+        for _ in range(3):  # receptive field 5, stride 2
+            height, width = (height - 5) // 2 + 1, (width - 5) // 2 + 1
+        return 36, height, width
+
+    def out_dim(self, height: int, width: int) -> int:
+        return math.prod(self.out_chw(height, width))
+
+    def forward(self, x, train=True, ep_groups=1, stats=None):
+        x = preprocess_input(x, imagenet=False).permute(0, 3, 1, 2)
+        for conv in (self.layer1, self.layer2, self.layer3):
+            x = F.relu(conv(x))
+        return x.reshape(x.shape[0], -1)
 
 
-model_dict = _ModelDict(Conv4=Conv4, Conv4S=Conv4S, Conv6=Conv6,
-                        ResNet10=ResNet10, ResNet18=ResNet18,
-                        ResNet34=ResNet34, ResNet50=ResNet50,
-                        ResNet101=ResNet101)
+class MLP2(nn.Module):
+    """The sines feature net: Linear(1, 40) + ReLU, Linear(40, 40) + ReLU
+    (reference sines/train_DKT.py:113-124; JAX backbones.py:390-400), with
+    flax's lecun_normal weights and zero biases. Input [N, 1]."""
+
+    input_rank = 1  # an input is [1]
+
+    def __init__(self, width: int = 40):
+        super().__init__()
+        self.width = width
+        self.layer1 = nn.Linear(1, width)
+        self.layer2 = nn.Linear(width, width)
+        self.reset_parameters()
+
+    def reset_parameters(self, generator=None) -> None:
+        for layer in (self.layer1, self.layer2):
+            lecun_normal_(layer.weight, layer.weight.shape[1], generator)
+            nn.init.zeros_(layer.bias)
+
+    def out_dim(self, *size) -> int:
+        return self.width
+
+    def forward(self, x, train=True, ep_groups=1, stats=None):
+        return F.relu(self.layer2(F.relu(self.layer1(x))))
+
+
+def trunk_features(trunk: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """A regression trunk over inputs [..., N, *input] (`trunk.input_rank`
+    trailing axes an input), run once over the flat batch with TF32 off:
+    features [..., N, D]."""
+    lead = x.shape[:x.dim() - trunk.input_rank]
+    with full_f32():
+        z = trunk(x.reshape((-1,) + tuple(x.shape[len(lead):])))
+    return z.reshape(tuple(lead) + tuple(z.shape[1:]))
+
+
+model_dict = dict(Conv4=Conv4, Conv4S=Conv4S, Conv6=Conv6,
+                  ResNet10=ResNet10, ResNet18=ResNet18, ResNet34=ResNet34,
+                  ResNet50=ResNet50, ResNet101=ResNet101, Conv3=Conv3,
+                  MLP2=MLP2)
 
 # width of the flat features (reference backbone.py:264,304,368)
 feat_dims = {"Conv4": 1600, "Conv4S": 64, "Conv6": 1600, "ResNet10": 512,
              "ResNet18": 512, "ResNet34": 512, "ResNet50": 2048,
-             "ResNet101": 2048}
+             "ResNet101": 2048, "Conv3": 2916, "MLP2": 40}
 
 # the NP trunks' maps, (C, H, W) in the port's NCHW layout (the JAX
 # package's np_feat_shapes hold the same maps as (H, W, C))

@@ -16,6 +16,18 @@ model.models.{w}.covar_module.base_kernel.raw_{variance|lengthscale|offset}.
 That is the layout the JAX package imports (utils/torch_import.py), so its
 test.py evaluates a checkpoint of the port's train.
 
+The regression methods keep the reference's own layouts, each part a
+state_dict (JAX utils/torch_export.py:339-385): DKTRegression as
+{'gp', 'likelihood', 'net'} (reference methods/DKT_regression.py:99-104),
+with gpytorch's names for the GP (mean_module.raw_constant,
+covar_module.raw_outputscale, covar_module.base_kernel.raw_lengthscale,
+or covar_module.raw_mixture_{weights,means,scales} with means and scales
+[Q, 1, D] over CHW-ordered features) and the noise under gpytorch's
+GreaterThan(1e-4), noise = softplus(raw) + 1e-4; FeatureTransfer as
+{'feature_extractor', 'model'} (reference
+feature_transfer_regression.py:82-83). The port adds an 'epoch' entry,
+which the reference's and the JAX package's loaders ignore.
+
 `load_checkpoint` reads that layout, and also the JAX package's own npz
 checkpoints (leaves keyed by their keystr path, JAX checkpoint.py:28-41),
 parsed without JAX and loaded through utils/convert.params_from_jax.
@@ -66,10 +78,97 @@ def _reference_state(model) -> dict[str, torch.Tensor]:
     return out
 
 
+# DKTRegression's GP leaves -> gpytorch's names (JAX torch_import.py:614-657)
+_REGRESSION_GP = {"mean.constant": "mean_module.raw_constant",
+                  "kernel.raw_outputscale": "covar_module.raw_outputscale",
+                  "kernel.base.raw_lengthscale":
+                      "covar_module.base_kernel.raw_lengthscale",
+                  "kernel.raw_weights": "covar_module.raw_mixture_weights",
+                  "kernel.raw_means": "covar_module.raw_mixture_means",
+                  "kernel.raw_scales": "covar_module.raw_mixture_scales"}
+_NOISE_FLOOR = 1e-4  # gpytorch GaussianLikelihood's GreaterThan(1e-4)
+_REGRESSION_METHODS = ("DKTRegression", "FeatureTransfer")
+
+
+def _softplus(x):
+    return np.logaddexp(0.0, np.asarray(x, np.float64))
+
+
+def _inv_softplus(y):
+    y = np.asarray(y, np.float64)
+    return y + np.log1p(-np.exp(-y))
+
+
+def _reference_gp_shape(leaf: str, value: torch.Tensor) -> tuple:
+    if leaf == "kernel.base.raw_lengthscale":
+        return (1, 1)
+    if leaf in ("kernel.raw_means", "kernel.raw_scales"):
+        return (value.shape[0], 1, value.shape[1])
+    return tuple(value.shape)
+
+
+def _regression_blob(model) -> dict:
+    """The reference's multi-part layout of a regression method."""
+    sd = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    if type(model).__name__ == "FeatureTransfer":
+        parts = {"feature_extractor": {}, "model": {}}
+        for name, value in sd.items():
+            part, key = name.split(".", 1)
+            parts[part][key] = value
+        return parts
+    net = {k.removeprefix("feature."): v for k, v in sd.items()
+           if k.startswith("feature.")}
+    gp = {}
+    for leaf, key in _REGRESSION_GP.items():
+        value = sd.get(f"gp.{leaf}")
+        if value is not None:
+            gp[key] = value.reshape(_reference_gp_shape(leaf, value))
+    gp["mean_module.constant"] = sd["gp.mean.constant"].reshape(1)
+    noise = _softplus(sd["gp.likelihood.raw_noise"].numpy())
+    raw = _inv_softplus(np.maximum(noise - _NOISE_FLOOR, 1e-8))
+    likelihood = {"noise_covar.raw_noise": torch.tensor(
+        np.asarray(raw, np.float32).reshape(1))}
+    return {"gp": gp, "likelihood": likelihood, "net": net}
+
+
+def _load_regression(blob: dict, model) -> None:
+    """A regression method's state_dict from the reference's layout (also
+    as the reference wrote it: mean_module.constant, or the noise inside
+    the 'gp' part)."""
+    own = model.state_dict()
+    if "feature_extractor" in blob:
+        sd = {f"{part}.{k}": v for part in ("feature_extractor", "model")
+              for k, v in blob[part].items()}
+    else:
+        gp = blob["gp"]
+        sd = {f"feature.{k}": v for k, v in blob["net"].items()}
+        for leaf, key in _REGRESSION_GP.items():
+            name = f"gp.{leaf}"
+            if name not in own:
+                continue
+            value = gp.get(key)
+            if value is None and leaf == "mean.constant":
+                value = gp["mean_module.constant"]
+            sd[name] = value.reshape(own[name].shape)
+        raw = blob.get("likelihood", {}).get("noise_covar.raw_noise")
+        if raw is None:
+            raw = gp["likelihood.noise_covar.raw_noise"]
+        noise = _softplus(raw.numpy()) + _NOISE_FLOOR
+        sd["gp.likelihood.raw_noise"] = torch.tensor(
+            np.asarray(_inv_softplus(noise), np.float32).reshape(()))
+    model.load_state_dict({k: v.to(model.device) for k, v in sd.items()},
+                          strict=True)
+
+
 def save_checkpoint(path: str, model, epoch: int = -1) -> None:
-    """torch.save({'epoch', 'state'}) of `model` in the reference layout."""
+    """torch.save of `model` in the reference layout: {'epoch', 'state'},
+    or a regression method's multi-part layout with its 'epoch'."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    torch.save({"epoch": int(epoch), "state": _reference_state(model)}, path)
+    if type(model).__name__ in _REGRESSION_METHODS:
+        blob = {"epoch": int(epoch), **_regression_blob(model)}
+    else:
+        blob = {"epoch": int(epoch), "state": _reference_state(model)}
+    torch.save(blob, path)
 
 
 def _is_torch_checkpoint(path: str) -> bool:
@@ -81,6 +180,9 @@ def _is_torch_checkpoint(path: str) -> bool:
 
 def _load_reference(path: str, model) -> int:
     blob = torch.load(path, map_location="cpu", weights_only=True)
+    if type(model).__name__ in _REGRESSION_METHODS:
+        _load_regression(blob, model)
+        return int(blob.get("epoch", -1))
     state = blob["state"]
     sd = {}
     for name, value in model.state_dict().items():

@@ -19,7 +19,9 @@ port's modules:
     the flax bias goes into bias_ih and bias_hh is 0 (torch sums them);
   * vectors and matrix axes over the flat features of a Conv trunk (the
     bncossim bn_out, the baseline and MAML heads, MatchingNet's LSTM input
-    AND hidden units, which are residual-summed with the features) are
+    AND hidden units, which are residual-summed with the features; on the
+    regression track the spectral mixture's ARD means and scales [Q, 2916]
+    and the transfer head's Linear(2916, 1) over Conv3's features) are
     permuted from the JAX package's HWC flatten order to the port's CHW
     order. Pooled trunks (the ResNets) emit channel vectors on both sides:
     no permutation. RelationNet's maps cross from NHWC to NCHW and its
@@ -35,6 +37,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..models.backbones import MLP2, Conv3
+
 
 def chw_to_hwc_perm(h: int, w: int, c: int) -> np.ndarray:
     """perm with v_hwc = v_chw[perm]: torch flattens [C, H, W], the JAX
@@ -45,7 +49,10 @@ def chw_to_hwc_perm(h: int, w: int, c: int) -> np.ndarray:
 
 def flatten_perm(backbone, image_size: int) -> np.ndarray:
     """perm with (JAX flat features) = (port flat features)[:, perm] for a
-    flattening trunk at that image size (JAX torch_import.py:118-131)."""
+    flattening trunk at that image size (JAX torch_import.py:118-131); the
+    identity for MLP2, whose features are no map."""
+    if isinstance(backbone, MLP2):
+        return np.arange(backbone.out_dim())
     c, h, w = backbone.out_chw(image_size, image_size)
     if getattr(backbone, "out_dims", None) and backbone.flatten:  # ResNet
         return np.arange(c)
@@ -99,6 +106,14 @@ def backbone_state_from_jax(fvars: dict, backbone, prefix: str) -> dict:
     torch_export.py:73-137)."""
     params, stats = fvars["params"], fvars.get("batch_stats")
     out: dict[str, np.ndarray] = {}
+    if isinstance(backbone, Conv3):  # JAX torch_export.py:127-134
+        for i in range(3):
+            _conv(out, f"{prefix}layer{i + 1}", params[f"Conv_{i}"])
+        return out
+    if isinstance(backbone, MLP2):
+        for i in range(2):
+            _dense(out, f"{prefix}layer{i + 1}", params[f"Dense_{i}"])
+        return out
     if not hasattr(backbone, "out_dims"):  # a Conv trunk
         for i in range(backbone.depth):
             blk = params[f"ConvBlock_{i}"]
@@ -241,15 +256,58 @@ def _net_with_head(params: dict, model, image_size: int) -> dict:
     return out
 
 
+def dkt_regression_state_from_jax(params: dict, model,
+                                  image_size: int = 100) -> dict:
+    """DKTRegression: the trunk under feature, the GP's leaves under gp.;
+    the spectral mixture's raw_means and raw_scales [Q, D] from HWC to CHW
+    order over a Conv3's features (JAX torch_export.py:339-369). Both
+    packages keep the noise as softplus(raw_noise)."""
+    out = backbone_state_from_jax(params["feature"], model.feature,
+                                  "feature.")
+    gp = {k: dict(v) for k, v in params["gp"].items()}
+    if "raw_means" in gp["kernel"]:
+        rows = _to_chw(flatten_perm(model.feature, image_size))
+        for key in ("raw_means", "raw_scales"):
+            gp["kernel"][key] = _f32(gp["kernel"][key])[:, rows]
+    _flat(gp, "gp.", out)
+    return out
+
+
+def feature_transfer_state_from_jax(params: dict, model,
+                                    image_size: int = 100) -> dict:
+    """FeatureTransfer: TransferNet's backbone under feature_extractor.,
+    its Dense_0 as model.layer4 with the input axis from HWC to CHW order
+    (JAX torch_export.py:372-385)."""
+    net = params["net"]["params"]
+    out = backbone_state_from_jax({"params": net["backbone"]},
+                                  model.feature_extractor,
+                                  "feature_extractor.")
+    _dense(out, "model.layer4", net["Dense_0"],
+           _to_chw(flatten_perm(model.feature_extractor, image_size)))
+    return out
+
+
+def sines_maml_state_from_jax(params: dict, model, image_size=None) -> dict:
+    """SinesMAML's MLP 1->40->40->1: flax Dense_{0,1,2} as layer{1,2,3}."""
+    out: dict[str, np.ndarray] = {}
+    for i in range(3):
+        _dense(out, f"net.layer{i + 1}", params["params"][f"Dense_{i}"])
+    return out
+
+
 _CONVERTERS = {"DKT": _dkt, "ProtoNet": _protonet,
                "MatchingNet": _matchingnet, "RelationNet": _relationnet,
-               "MAML": _net_with_head, "BaselineTrain": _net_with_head}
+               "MAML": _net_with_head, "BaselineTrain": _net_with_head,
+               "DKTRegression": dkt_regression_state_from_jax,
+               "FeatureTransfer": feature_transfer_state_from_jax,
+               "SinesMAML": sines_maml_state_from_jax}
 
 
 def state_from_jax(params: dict, model, image_size: int) -> dict:
     """The port's state_dict entries (name -> numpy array) of a JAX
     method's params tree, for the port's method object of the same kind
-    (DKT, ProtoNet, MatchingNet, RelationNet, MAML, BaselineTrain). A tree
+    (DKT, ProtoNet, MatchingNet, RelationNet, MAML, BaselineTrain,
+    DKTRegression, FeatureTransfer, SinesMAML). A tree
     without "batch_stats" (a gradient tree, say) maps to the parameters
     alone."""
     return _CONVERTERS[type(model).__name__](params, model, image_size)

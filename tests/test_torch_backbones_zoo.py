@@ -178,14 +178,17 @@ def test_distlinear_matches_jax():
 
 
 def test_model_dict_and_shapes():
-    assert set(tbb.model_dict) == set(jbb.model_dict) - {"Conv3", "MLP2"}
-    for name in ("Conv3", "MLP2"):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            tbb.model_dict[name]
+    assert set(tbb.model_dict) == set(jbb.model_dict)
+    assert tbb.feat_dims == jbb.feat_dims
     for name, dim in tbb.feat_dims.items():
-        assert jbb.feat_dims[name] == dim
-        size = 28 if name == "Conv4S" else (84 if "Conv" in name else 224)
+        size = {"Conv4S": 28, "Conv3": 100}.get(
+            name, 84 if "Conv" in name else 224)
         assert tbb.model_dict[name]().out_dim(size, size) == dim
+    # the regression trunks build and carry the reference's names
+    assert [k for k, _ in tbb.model_dict["Conv3"]().named_parameters()] == [
+        f"layer{i}.{p}" for i in (1, 2, 3) for p in ("weight", "bias")]
+    assert [k for k, _ in tbb.model_dict["MLP2"]().named_parameters()] == [
+        f"layer{i}.{p}" for i in (1, 2) for p in ("weight", "bias")]
     for name, (c, h, w) in tbb.np_feat_shapes.items():
         assert jbb.np_feat_shapes[name] == (h, w, c)
         size = 28 if "S" in name else 84

@@ -212,26 +212,42 @@ def test_needs_cuda_unless_cpu_is_asked(monkeypatch):
 
 
 def test_port_imports_no_jax():
-    """With jax, flax and optax unimportable, every module of the port
-    imports and a CPU train step and eval run; nothing of the JAX package
-    gets loaded."""
+    """With jax, flax, optax and matplotlib unimportable, every module of
+    the port imports (the regression track's, the sines scripts and the
+    accuracy runners among them), and a CPU train step and eval of DKT,
+    of DKT regression and of the sines scripts run; nothing of the JAX
+    package gets loaded."""
     code = r"""
 import importlib, pkgutil, sys
-for name in ("jax", "flax", "optax"):
+for name in ("jax", "flax", "optax", "matplotlib"):
     sys.modules[name] = None
 import torch
 import deep_kernel_transfer_tpu_torch as port
 for mod in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
     importlib.import_module(mod.name)
-from deep_kernel_transfer_tpu_torch.methods import DKT
-from deep_kernel_transfer_tpu_torch.models import ConvNet
+new = ["methods.dkt_regression", "methods.feature_transfer", "data.qmul",
+       "data.sines", "train_regression", "test_regression", "sines.common",
+       "sines.train_DKT", "sines.train_FT", "sines.train_MAML",
+       "benchmarks.regression_real"]
+missing = [n for n in new if port.__name__ + "." + n not in sys.modules]
+assert not missing, missing
+from deep_kernel_transfer_tpu_torch.methods import DKT, DKTRegression
+from deep_kernel_transfer_tpu_torch.models import MLP2, ConvNet, Conv3
+from deep_kernel_transfer_tpu_torch.sines import train_FT, train_MAML
 x = torch.randint(0, 256, (2, 5, 3, 16, 16, 3), dtype=torch.uint8)
 m = DKT(ConvNet(2), 5, 1, device="cpu").init(x[0])
 assert torch.isfinite(m.train_step(x)["loss"])
 m.batch_correct(x)
+r = DKTRegression(Conv3(), 144, "spectral", device="cpu").init()
+xr = torch.rand(2, 19, 40, 40, 3)
+assert torch.isfinite(r.unbatched_train_step(xr, torch.rand(2, 19))["loss"])
+r.predict(xr[0, :5], torch.rand(5), xr[0])
+for script in (train_FT, train_MAML):
+    script.main(["--iterations=2", "--n_test_tasks=1", "--task_batch=2"],
+                device="cpu")
 loaded = [k for k, v in sys.modules.items() if v is not None
           and k.split(".")[0] in ("deep_kernel_transfer_tpu", "jax", "flax",
-                                  "optax")]
+                                  "optax", "matplotlib")]
 assert not loaded, loaded
 print("PORT_OK")
 """

@@ -232,8 +232,18 @@ def test_kernel_registry():
         tkernels.make_kernel(kind)
         assert (tkernels.normalizes_features(kind)
                 == jkernels.normalizes_features(kind))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tkernels.make_kernel("spectral")
+    # spectral builds, with the JAX registry's parameters and shapes
+    spectral = tkernels.make_kernel("spectral", dim=7, num_mixtures=3)
+    got = spectral.init("cpu", torch.Generator().manual_seed(0))
+    want = jkernels.make_kernel("spectral", dim=7, num_mixtures=3).init(
+        jax.random.PRNGKey(0))
+    assert {k: tuple(v.shape) for k, v in got.items()} == {
+        k: tuple(v.shape) for k, v in want.items()}
+    assert float(got["raw_weights"].abs().max()) == 0.0
+    for bad in (lambda: tkernels.make_kernel("spectral"),
+                lambda: jkernels.make_kernel("spectral")):
+        with pytest.raises(ValueError, match="ard_num_dims"):
+            bad()
     with pytest.raises(ValueError):
         tkernels.make_kernel("nope")
 

@@ -1,5 +1,6 @@
 """The rest of the port's DKT kernel zoo (rbf, matern, poli1, poli2 in
-deep_kernel_transfer_tpu_torch/gp/kernels.py) against the JAX package's,
+deep_kernel_transfer_tpu_torch/gp/kernels.py, and the regression track's
+spectral mixture through the engine) against the JAX package's,
 on the same numpy inputs: the Gram, the MLL and its gradients (in the
 inputs and in every hyperparameter, lengthscale and offset included), the
 posterior mean and variance, at N in {25, 85, 100} with D = N + 3 (the
@@ -20,6 +21,7 @@ import jax.numpy as jnp
 
 from deep_kernel_transfer_tpu.gp import ExactGP as JExactGP
 from deep_kernel_transfer_tpu.gp import GaussianLikelihood as JLik
+from deep_kernel_transfer_tpu.gp import kernels as jkernels
 from deep_kernel_transfer_tpu.gp import make_kernel as jmake
 from deep_kernel_transfer_tpu.methods import DKT as JDKT
 from deep_kernel_transfer_tpu.models import backbones as jbb
@@ -151,9 +153,44 @@ def test_way_batched_lengthscale_and_offset(kind):
         assert torch.allclose(got.variance[w], one.variance, atol=1e-6)
 
 
-def test_spectral_still_raises():
-    with pytest.raises(NotImplementedError, match="queue A, item 8"):
-        tkernels.make_kernel("spectral")
+def test_spectral_still_raises(monkeypatch):
+    """The spectral mixture through the exact GP with a trainable noise:
+    the MLL and its gradients, the posterior mean and variance, against
+    the JAX engine (its sq_dist replaced by the exact elementwise sum that
+    gpytorch and the port use; tests/test_torch_regression.py says why).
+    The name is kept from when the port refused the kernel."""
+    monkeypatch.setattr(jkernels, "sq_dist", lambda a, b: jnp.sum(
+        jnp.square(a[:, None, :] - b[None, :, :]), axis=-1))
+    d = 6
+    jgp = JExactGP(jmake("spectral", dim=d), JLik(trainable=True))
+    tgp = ExactGP(tkernels.make_kernel("spectral", dim=d),
+                  GaussianLikelihood(trainable=True))
+    rng = np.random.RandomState(8)
+    p = {"mean": {"constant": np.float32(0.1)},
+         "kernel": {"raw_weights": rng.uniform(-1, 1, 4).astype(np.float32),
+                    "raw_means": rng.randn(4, d).astype(np.float32),
+                    "raw_scales": rng.randn(4, d).astype(np.float32)},
+         "likelihood": {"raw_noise": np.float32(-1.0)}}
+    x = (rng.randn(25, d) * 0.1).astype(np.float32)
+    xq = (rng.randn(9, d) * 0.1).astype(np.float32)
+    y = np.sin(3 * x[:, 0]).astype(np.float32)
+    jv, jg = jax.value_and_grad(lambda p: jgp.mll(p, jnp.asarray(x),
+                                                  jnp.asarray(y)))(
+        jax.tree.map(jnp.asarray, p))
+    tp = _torch_tree(p, grad=True)
+    tv = tgp.mll(tp, torch.from_numpy(x), torch.from_numpy(y))
+    tv.backward()
+    assert abs(tv.item() - float(jv)) < 1e-5
+    jl = _leaves(jg)
+    for path, leaf in _leaves(tp).items():
+        assert _rel(leaf.grad.numpy(), jl[path]) < 2e-2, path
+    want = jgp.posterior(jax.tree.map(jnp.asarray, p), jnp.asarray(x),
+                         jnp.asarray(y), jnp.asarray(xq))
+    got = tgp.posterior(_torch_tree(p), torch.from_numpy(x),
+                        torch.from_numpy(y), torch.from_numpy(xq))
+    assert np.abs(got.mean.numpy() - np.asarray(want.mean)).max() < 1e-5
+    assert np.abs(got.variance.numpy()
+                  - np.asarray(want.variance)).max() < 1e-5
 
 
 @pytest.mark.parametrize("nu", [0.5, 1.5, 2.5])
