@@ -31,7 +31,13 @@
    - the CLIs at full width, in a temporary working directory: a
      miniImagenet-layout dataset (64/16/20 classes x 600 images, 96x96
      PNGs written by a stdlib writer, each class with a visible signature)
-     with its stage caches written beforehand (no image decoder needed),
+     with its stage caches written beforehand (no image decoder needed);
+     first the native decoder's check: whether g++, jpeglib.h and png.h
+     are there and the library built, then the val split staged cold
+     (eval and canvas) by the decoder the CLIs take there (native where
+     it built, else PIL), images a second, its pixels against the
+     written ones (exact: the resampling is the identity at 96 px) and,
+     where both decoders run, PIL's on a sample;
      then `train.main` (Conv4, DKT, --train_aug, 32 episodes a batch, 2
      epochs of 10 batches) and the 600-episode `test.main`; checks the
      caches, the kernel's 20 launches, the losses, the telemetry, the
@@ -49,6 +55,14 @@
      with the kernel's launches counted, the fused route against the
      plain one, the step's ms, episodes/s, peak memory and profile; then
      `train` and `test` through the CLI on a generated 224-px set;
+   - episode parallelism at the main path's width (drive_parallel_path):
+     (a) 5 steps of the sharded step on an NCCL group of one rank against
+     5 plain train_steps, launches counted, both timed in turns; (b) two
+     processes on the one card over gloo, 16 episodes each, against the
+     one-process step on the 32 (loss, averaged gradients, weights, and
+     the weights equal on both ranks); (c) `train.main --n_devices=1`,
+     and --n_devices=2 refused on one card; then StepTimer and a
+     torch.profiler trace (utils/profiling.py) around two train steps;
    then the exact GP's Woodbury route against its dense route at N=4096,
    D=256: agreement, ms and peak memory of each; and every comparison
    method (protonet, matchingnet, relationnet, relationnet_softmax, maml,
@@ -76,9 +90,12 @@ from __future__ import annotations
 
 import json
 import math
+import multiprocessing
 import os
+import shutil
 import statistics
 import struct
+import subprocess
 import sys
 import tempfile
 import time
@@ -929,6 +946,7 @@ def drive_cli_path(device, card: str, step_ms: float) -> dict:
                   f"{sum(n for _, n in CLI_SPLITS) * CLI_IMAGES} PNGs and "
                   f"stage caches written in {time.perf_counter() - t0:.1f} s",
                   flush=True)
+            check_native_staging(files, device, card)
             torch.cuda.reset_peak_memory_stats()
             for split, canvas in (("base", True), ("val", False),
                                   ("novel", False)):
@@ -999,6 +1017,96 @@ def drive_cli_path(device, card: str, step_ms: float) -> dict:
             os.chdir(cwd)
             dd._CACHE.clear()
     return launches
+
+
+# -- the native decoder -------------------------------------------------------
+
+def _header_found(header: str) -> bool:
+    """Whether g++ finds `header` (it preprocesses a file including it)."""
+    try:
+        return subprocess.run(
+            ["g++", "-E", "-x", "c++", "-", "-o", os.devnull],
+            input=f"#include <stdio.h>\n#include <{header}>\n", text=True,
+            capture_output=True, timeout=60).returncode == 0
+    except OSError:
+        return False
+
+
+def check_native_staging(files: dict, device, card: str) -> None:
+    """The native decoder on this machine: whether g++, jpeglib.h and png.h
+    are there and whether the library built. Then the CLI phase's val
+    split (16 classes x 600 stdlib-written 96-px PNGs) staged cold, eval
+    (84 px) and canvas (96 px), by the decoder the CLIs take here (the
+    native one where it built, else PIL), with images a second: the host
+    decode cost of staging, and of each host-loader batch. At 96 px both
+    transforms resample at the PNG's own size, the identity, so the staged
+    pixels must be the written ones exactly (the eval one's centre crop);
+    where both decoders run, PIL's staging of a sample must equal them."""
+    import importlib.util
+
+    from deep_kernel_transfer_tpu_torch import native
+    from deep_kernel_transfer_tpu_torch.data import device_dataset as dd
+    from deep_kernel_transfer_tpu_torch.data.transforms import (
+        TransformPipeline, load_canvas)
+
+    found = {"g++": shutil.which("g++") is not None,
+             "jpeglib.h": _header_found("jpeglib.h"),
+             "png.h": _header_found("png.h")}
+    built = native.available()
+    has_pil = importlib.util.find_spec("PIL") is not None
+    print(f"native decoder: found {found}; library built: {built}; PIL "
+          f"importable: {has_pil}", flush=True)
+    if not built:
+        print("native decoder: it did not build on this machine, so the "
+              "CLIs decode with PIL here", flush=True)
+        if not has_pil:
+            return
+    first = dict(CLI_SPLITS)["base"]
+    written = np.concatenate([class_images(c, CLI_IMAGES)
+                              for c in range(first,
+                                             first + dict(CLI_SPLITS)["val"])])
+    lo = (CLI_PX - CLI_CROP) // 2
+    with open(files["val"]) as f:
+        sample = json.load(f)["image_names"][::150]
+    old = os.environ.get("DKT_NO_STAGE_CACHE")
+    os.environ["DKT_NO_STAGE_CACHE"] = "1"  # decode, and leave the caches
+    try:
+        for canvas in (False, True):
+            t0 = time.perf_counter()
+            ds = dd.DeviceDataset(files["val"], CLI_CROP, canvas=canvas,
+                                  device=device, verbose=True)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            got = ds.images.cpu().numpy()
+            want = written if canvas else written[:, lo:lo + CLI_CROP,
+                                                  lo:lo + CLI_CROP]
+            label = "canvas 96 px" if canvas else "eval 84 px"
+            print(f"staging decode: val split ({got.shape[0]} PNGs) staged "
+                  f"cold, {label}, by {ds.decoder} in {secs:.2f} s, "
+                  f"{got.shape[0] / secs:.0f} images/s (decode, transform, "
+                  f"copy to the card) [{card}]", flush=True)
+            if ds.decoder != ("native decoder" if built else "PIL"):
+                raise AssertionError(f"staged by {ds.decoder}")
+            if got.shape != want.shape or not np.array_equal(got, want):
+                raise AssertionError(f"{label}: staged pixels differ from "
+                                     f"the written ones")
+            if built and has_pil:
+                pil = (np.stack([load_canvas(p, CLI_PX) for p in sample])
+                       if canvas else TransformPipeline(
+                           CLI_CROP, aug=False, use_native=False).load_batch(
+                               sample))
+                if not np.array_equal(pil, got[::150]):
+                    raise AssertionError(f"{label}: PIL differs on the "
+                                         f"sample")
+            del ds
+        print("staging decode: the staged pixels equal the written ones"
+              + (f", and PIL's on {len(sample)} of them"
+                 if built and has_pil else ""), flush=True)
+    finally:
+        if old is None:
+            del os.environ["DKT_NO_STAGE_CACHE"]
+        else:
+            os.environ["DKT_NO_STAGE_CACHE"] = old
 
 
 def check_cli_outputs(get_resume_file, acc: float) -> None:
@@ -1394,6 +1502,274 @@ def drive_zoo_path(device, card: str) -> None:
     if low:
         raise AssertionError(f"accuracy not above 50%: {low}")
 
+# -- episode parallelism and the profiling helpers -----------------------------
+
+PAR_ARGS = ["--dataset=miniImagenet", "--model=Conv4", "--method=DKT",
+            "--episode_batch=32", "--n_train_episodes=64", "--stop_epoch=1"]
+
+
+def build_main_model(device, episode: torch.Tensor, seed: int = 0):
+    """DKT on Conv4 (bncossim, bf16 trunk), the main path's model, for
+    episodes shaped like `episode` [n_way, S+Q, H, W, 3]."""
+    from deep_kernel_transfer_tpu_torch.methods import DKT
+    from deep_kernel_transfer_tpu_torch.models import Conv4
+
+    return DKT(Conv4(), episode.shape[0], MAIN_SHOT, kernel_type="bncossim",
+               feature_dtype="bfloat16", device=device).init(
+                   episode, torch.Generator().manual_seed(seed))
+
+
+def _two_rank_step(rank: int, port: int, inputs: str, out: str,
+                   device_type: str) -> None:
+    """Rank `rank` of two on the one card (or the CPU), over gloo with the
+    device's tensors: rank 0's weights broadcast, one sharded train step
+    on the rank's half of the batch; rank 0 saves the loss, the averaged
+    gradients, the weights after the step, the largest difference of any
+    weight between the ranks and the kernel launches of both."""
+    import torch.distributed as dist
+
+    from deep_kernel_transfer_tpu_torch.ops.fused_mll import fused_linear_mll
+    from deep_kernel_transfer_tpu_torch.parallel import (
+        Mesh, make_sharded_train_step, replicate_tree, shard_episode_batch)
+
+    device = torch.device(device_type)
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        device = torch.device("cuda", 0)
+        torch.cuda.set_device(device)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=2, rank=rank)
+    try:
+        blob = torch.load(inputs, map_location=device, weights_only=True)
+        # rank 1 draws other weights: replicate_tree must overwrite them
+        model = build_main_model(device, blob["x"][0], seed=rank)
+        if rank == 0:
+            model.load_state_dict(blob["state"])
+        mesh = Mesh(rank, 2, device)
+        replicate_tree([model, model.optimizer], mesh)
+        fused_linear_mll.launches = 0
+        m = make_sharded_train_step(model, mesh)(
+            shard_episode_batch(blob["x"], mesh))
+        torch.cuda.synchronize()
+        flat = torch.cat([v.reshape(-1).float()
+                          for v in model.state_dict().values()])
+        ref = flat.clone()
+        dist.broadcast(ref, 0)
+        spread = (flat - ref).abs().max().reshape(1)
+        dist.all_reduce(spread, op=dist.ReduceOp.MAX)
+        launches = torch.tensor([float(fused_linear_mll.launches)],
+                                device=device)
+        dist.all_reduce(launches)
+        if rank == 0:
+            torch.save({"loss": float(m["loss"]),
+                        "grads": {n: p.grad.cpu()
+                                  for n, p in model.named_parameters()},
+                        "state": {k: v.cpu()
+                                  for k, v in model.state_dict().items()},
+                        "spread": float(spread), "launches": int(launches)},
+                       out)
+    finally:
+        dist.destroy_process_group()
+
+
+def check_two_ranks_one_card(device, card: str, x: torch.Tensor) -> int:
+    """(b): two processes on the one card over gloo (NCCL refuses two ranks
+    on one GPU), 16 episodes each, against the one-process step on the 32.
+    Returns the ranks' kernel launches."""
+    from deep_kernel_transfer_tpu_torch.parallel.mesh import free_port
+
+    ref = build_main_model(device, x[0], seed=1)
+    state = {k: v.detach().clone() for k, v in ref.state_dict().items()}
+    loss1 = float(ref.train_step(x)["loss"])
+    grads1 = {n: p.grad.detach().cpu() for n, p in ref.named_parameters()}
+    after1 = {k: v.cpu() for k, v in ref.state_dict().items()}
+    lrs = {n: ref.gp_lr if n.startswith("gp.") else ref.feature_lr
+           for n, _ in ref.named_parameters()}
+    del ref
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as d:
+        inputs, out = os.path.join(d, "in.pt"), os.path.join(d, "out.pt")
+        torch.save({"state": state, "x": x}, inputs)
+        ctx = multiprocessing.get_context("spawn")
+        port = free_port()
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=_two_rank_step,
+                             args=(r, port, inputs, out, device.type))
+                 for r in (0, 1)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(600)
+            if p.is_alive():
+                p.terminate()
+                p.join()
+        codes = [p.exitcode for p in procs]
+        if codes != [0, 0]:
+            raise AssertionError(f"the two ranks exited with {codes}")
+        two = torch.load(out, weights_only=True)
+    wall = time.perf_counter() - t0
+    loss_rel = abs(two["loss"] - loss1) / abs(loss1)
+    # the gradient as one vector, against its norm: in bf16 the conv
+    # biases before a train-mode BatchNorm (exact gradient 0) hold rounding
+    # noise of 1e-3, which no per-tensor scale separates from an error
+    names = sorted(grads1)
+    diff = torch.cat([(two["grads"][n] - grads1[n]).reshape(-1)
+                      for n in names])
+    grad_rel = float(diff.norm() / torch.cat(
+        [grads1[n].reshape(-1) for n in names]).norm())
+    worst = max(names, key=lambda n: float(
+        (two["grads"][n] - grads1[n]).norm() / (grads1[n].norm() + 1e-12)))
+    step_dev = max(float((two["state"][n] - after1[n]).abs().max()
+                         / (2 * lr)) for n, lr in lrs.items())
+    print(f"episode parallel (b), 2 ranks on one card over gloo, 16 "
+          f"episodes each: loss {two['loss']!r} against the one-process "
+          f"{loss1!r} (relative {loss_rel:.3e}), averaged gradient "
+          f"{grad_rel:.3e} of the one-process gradient's norm away from it "
+          f"(the tensor furthest off in its own norm: {worst}), weights "
+          f"after the Adam step within "
+          f"{step_dev:.3e} x 2 lr, largest weight difference between the "
+          f"ranks {two['spread']!r}, fused_linear_mll launches "
+          f"{two['launches']} (both ranks), {wall:.1f} s with the ranks' "
+          f"start [{card}]", flush=True)
+    # bf16 trunk: the convolutions' gradients of 16 episodes round to bf16
+    # (2^-8 relative) apart from those of 32, by other algorithms; a
+    # missing or wrong average is off by tens of percent. Adam's first
+    # step moves a weight by lr * sign(g): a flipped sign moves it 2 lr
+    if not (loss_rel < 1e-3 and grad_rel < 2e-2 and step_dev < 1.01):
+        raise AssertionError("two ranks disagree with one process")
+    if two["spread"] != 0.0:
+        raise AssertionError("the ranks' weights differ after the step")
+    if two["launches"] != 2:
+        raise AssertionError("want one fused-MLL launch on each rank")
+    return two["launches"]
+
+
+def drive_parallel_path(device, card: str) -> dict:
+    """Episode parallelism at the main path's full width (DKT, Conv4,
+    bncossim, 5w5s15q, 84 px, B = 32, bf16 trunk), then the profiling
+    helpers. Returns the fused MLL's launches of (a), (b), (c) and the
+    profiled steps.
+
+    (a) NCCL with one rank: 5 sharded steps against 5 plain train_steps
+        from the same weights on the same episodes, the sharded step timed
+        against the plain one in turns;
+    (b) two ranks on the one card over gloo (check_two_ranks_one_card);
+    (c) `train.main --n_devices=1` (resolve_mesh: the single-device path)
+        on a small generated miniImagenet layout, 2 steps; and
+        --n_devices=2, which must refuse the one card;
+    then StepTimer and trace around two train steps."""
+    import torch.distributed as dist
+
+    from deep_kernel_transfer_tpu_torch import train
+    from deep_kernel_transfer_tpu_torch.data import device_dataset as dd
+    from deep_kernel_transfer_tpu_torch.ops.fused_mll import fused_linear_mll
+    from deep_kernel_transfer_tpu_torch.parallel import (
+        make_mesh, make_sharded_train_step, shard_episode_batch)
+    from deep_kernel_transfer_tpu_torch.utils.profiling import (
+        StepTimer, annotate, trace)
+
+    gen = torch.Generator(device=device).manual_seed(7)
+    shape = (MAIN_B, MAIN_WAY, MAIN_SHOT + MAIN_QUERY, MAIN_PX, MAIN_PX, 3)
+    batches = [torch.randint(0, 256, shape, generator=gen, device=device,
+                             dtype=torch.uint8) for _ in range(2)]
+    launches = 0
+
+    # (a)
+    plain = build_main_model(device, batches[0][0])
+    model = build_main_model(device, batches[0][0], seed=1)
+    model.load_state_dict(plain.state_dict())
+    mesh = make_mesh(1, device)
+    try:
+        step = make_sharded_train_step(model, mesh)
+        want = [float(plain.train_step(batches[i % 2])["loss"])
+                for i in range(5)]
+        fused_linear_mll.launches = 0
+        got = [step(shard_episode_batch(batches[i % 2], mesh))["loss"]
+               for i in range(5)]
+        torch.cuda.synchronize()
+        n_a = fused_linear_mll.launches
+        got = [float(v) for v in got]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+        print(f"episode parallel (a), NCCL, one rank: 5 sharded steps, "
+              f"losses {got}; plain train_step {want}; largest relative "
+              f"difference {rel:.3e}; fused_linear_mll launches {n_a}",
+              flush=True)
+        if not all(math.isfinite(v) for v in got) or not rel < 1e-3:
+            raise AssertionError("the sharded step disagrees with the plain")
+        if n_a != 5:
+            raise AssertionError(f"want 5 fused-MLL launches, got {n_a}")
+        launches += n_a
+        times = ms_in_turns(
+            {"sharded": lambda: step(batches[0]),
+             "plain": lambda: plain.train_step(batches[0])},
+            rounds=4, iters=5)
+        for name, (ms, lo, hi) in times.items():
+            print(f"train step, {name}, one rank: {ms:.3f} ms (median of 4 "
+                  f"turns, {lo:.3f}-{hi:.3f}) [{card}]", flush=True)
+    finally:
+        dist.destroy_process_group()
+    del model
+    torch.cuda.empty_cache()
+
+    # (b)
+    launches += check_two_ranks_one_card(device, card, batches[0])
+
+    # (c)
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as root:
+        os.chdir(root)
+        try:
+            write_cli_dataset(root, splits=(("base", 10), ("val", 5),
+                                            ("novel", 5)),
+                              n_images=40, canvas_base=False)
+            fused_linear_mll.launches = 0
+            t0 = time.perf_counter()
+            train.main(PAR_ARGS + ["--n_devices=1"])
+            torch.cuda.synchronize()
+            n_c = fused_linear_mll.launches
+            print(f"episode parallel (c): train.main --n_devices=1, 2 steps "
+                  f"of 32 episodes and the validation in "
+                  f"{time.perf_counter() - t0:.2f} s, fused_linear_mll "
+                  f"launches {n_c} [{card}]", flush=True)
+            if n_c != 2 or not os.path.isfile(
+                    "save/checkpoints/miniImagenet/Conv4_DKT_5way_5shot/"
+                    "best_model.tar"):
+                raise AssertionError("train --n_devices=1 did not train")
+            launches += n_c
+            try:
+                train.main(PAR_ARGS + ["--n_devices=2"])
+            except ValueError as e:
+                print(f"episode parallel (c): --n_devices=2 on one card "
+                      f"refused: {e}", flush=True)
+            else:
+                raise AssertionError("--n_devices=2 ran on one card")
+        finally:
+            os.chdir(cwd)
+            dd._CACHE.clear()
+
+    # the profiling helpers around two train steps
+    timer = StepTimer()
+    with tempfile.TemporaryDirectory() as d:
+        fused_linear_mll.launches = 0
+        with trace(d, device) as prof:
+            for i in range(2):
+                with annotate("train_step"), timer.phase("step") as ph:
+                    ph["sync"] = plain.train_step(batches[i])
+        files = {f: os.path.getsize(os.path.join(d, f))
+                 for f in os.listdir(d)}
+        n_p = fused_linear_mll.launches
+    spans = [e for e in prof.key_averages() if e.key == "train_step"]
+    print(f"profiling: StepTimer {timer.report()}; trace files {files}; "
+          f"'train_step' spans {spans[0].count if spans else 0}; "
+          f"fused_linear_mll launches {n_p} [{card}]", flush=True)
+    if not files or not sum(files.values()):
+        raise AssertionError("the trace directory is empty")
+    if timer.counts["step"] != 2 or n_p != 2 or not spans:
+        raise AssertionError("the profiled steps did not run as traced")
+    return {"fused_linear_mll": launches + n_p}
+
+
 # -- the regression track ------------------------------------------------------
 
 REG_EPOCHS, REG_TEST_EPOCHS = 10, 10
@@ -1721,7 +2097,8 @@ def main() -> int:
     paths = [lambda: drive_gp_memory_path(device),
              lambda: drive_cli_path(device, card, step_ms),
              lambda: drive_heads_path(device, card),
-             lambda: drive_resnet_path(device, card)]
+             lambda: drive_resnet_path(device, card),
+             lambda: drive_parallel_path(device, card)]
     for path in paths:
         torch.cuda.empty_cache()
         for name, count in path().items():

@@ -122,21 +122,39 @@ def apply_jitter(images: torch.Tensor, factors: torch.Tensor) -> torch.Tensor:
     return images
 
 
+def draw_augment(gen: torch.Generator, n: int, canvas: int, out_size: int,
+                 device) -> tuple[torch.Tensor, ...]:
+    """The draws of `augment` for n images, in its order: the crop boxes
+    (left, top, cw, ch), the jitter factors [n, 3] and the flips [n], each
+    with a leading [n] axis, so that a slice of them is the draws of a
+    slice of the images."""
+    box = sample_crop_boxes(gen, n, canvas, out_size, device)
+    alphas = torch.tensor(list(JITTER_PARAMS.values()), device=device)
+    u = torch.rand(n, len(JITTER_PARAMS), generator=gen, device=device)
+    flip = torch.rand(n, generator=gen, device=device) < 0.5
+    return (*box, alphas * (u * 2.0 - 1.0) + 1.0, flip)
+
+
+def apply_augment(images_u8: torch.Tensor, draws: tuple[torch.Tensor, ...],
+                  out_size: int) -> torch.Tensor:
+    """[..., canvas, canvas, 3] uint8 -> [..., out_size, out_size, 3] uint8
+    under `draw_augment`'s draws, one for each image in order."""
+    lead = images_u8.shape[:-3]
+    flat = images_u8.reshape((-1,) + tuple(images_u8.shape[-3:])).to(
+        torch.float32)
+    left, top, cw, ch, factors, flip = draws
+    out = crop_resize(flat, left, top, cw, ch, out_size)
+    out = apply_jitter(out, factors)
+    out = torch.where(flip[:, None, None, None], out.flip(2), out)
+    out = torch.clamp(torch.round(out), 0, 255).to(torch.uint8)
+    return out.reshape(tuple(lead) + (out_size, out_size, 3))
+
+
 def augment(gen: torch.Generator, images_u8: torch.Tensor,
             out_size: int) -> torch.Tensor:
     """[..., canvas, canvas, 3] uint8 -> [..., out_size, out_size, 3] uint8,
     each image with its own crop, jitter and flip (JAX
     device_aug.py:108-129)."""
-    lead, canvas = images_u8.shape[:-3], images_u8.shape[-3]
-    flat = images_u8.reshape((-1,) + tuple(images_u8.shape[-3:])).to(
-        torch.float32)
-    n, dev = flat.shape[0], flat.device
-    out = crop_resize(flat, *sample_crop_boxes(gen, n, canvas, out_size, dev),
-                      out_size)
-    alphas = torch.tensor(list(JITTER_PARAMS.values()), device=dev)
-    u = torch.rand(n, len(JITTER_PARAMS), generator=gen, device=dev)
-    out = apply_jitter(out, alphas * (u * 2.0 - 1.0) + 1.0)
-    flip = torch.rand(n, generator=gen, device=dev) < 0.5
-    out = torch.where(flip[:, None, None, None], out.flip(2), out)
-    out = torch.clamp(torch.round(out), 0, 255).to(torch.uint8)
-    return out.reshape(tuple(lead) + (out_size, out_size, 3))
+    n = math.prod(images_u8.shape[:-3])
+    return apply_augment(images_u8, draw_augment(
+        gen, n, images_u8.shape[-3], out_size, images_u8.device), out_size)

@@ -1,11 +1,11 @@
 """A split staged once in device memory; episodes sampled on the device.
 
-Port of deep_kernel_transfer_tpu/data/device_dataset.py (without `shard`,
-which waits for ROADMAP queue A, item 9):
+Port of deep_kernel_transfer_tpu/data/device_dataset.py:
 
-  1. decode and eval-transform every image of a split once on the host
-     (or read the stage cache that an earlier run, of either package,
-     left beside the filelist),
+  1. decode and eval-transform every image of a split once on the host,
+     through the native decoder's thread pool where it builds, else PIL,
+     in chunks of 1024 (or read the stage cache that an earlier run, of
+     either package, left beside the filelist),
   2. hold the split as one [n_images, H, W, 3] uint8 tensor on the device,
      with a [n_class, width] slot table and the per-class counts,
   3. draw episodes with a `torch.Generator` on the device and gather them:
@@ -27,6 +27,7 @@ read-back in every step would make the host wait for the card each time.
 """
 from __future__ import annotations
 
+import copy
 import hashlib
 import os
 import time
@@ -37,7 +38,9 @@ import torch
 
 from .._device import resolve_device
 from .filelist import FileListMeta
-from .transforms import TransformPipeline, load_canvas
+from .transforms import TransformPipeline, load_canvas_batch
+
+STAGE_CHUNK = 1024  # images a decode call: bounds the native f32 buffer
 
 # ------------------------------------------------------------- stage cache
 # The decoded uint8 tensor of a split is kept on disk beside its filelist,
@@ -135,13 +138,16 @@ class DeviceDataset:
         host, cache_key = _stage_cache_load(data_file, paths, image_size,
                                             canvas)
         self.from_cache = host is not None
+        self.decoder = "stage cache"  # or what decoded the split
         if host is None:
-            if canvas:
-                size = int(image_size * 1.15)
-                host = np.stack([load_canvas(p, size) for p in paths])
-            else:
-                host = TransformPipeline(image_size, aug=False).load_batch(
-                    paths)
+            size = int(image_size * 1.15) if canvas else image_size
+            tp = TransformPipeline(image_size, aug=False)
+            self.decoder = "native decoder" if tp.use_native else "PIL"
+            host = np.empty((len(paths), size, size, 3), np.uint8)
+            for i in range(0, len(paths), STAGE_CHUNK):
+                chunk = paths[i:i + STAGE_CHUNK]
+                host[i:i + STAGE_CHUNK] = (load_canvas_batch(chunk, size)
+                                           if canvas else tp.load_batch(chunk))
             _stage_cache_store(data_file, cache_key, image_size, canvas, host)
         t1 = time.perf_counter()
 
@@ -155,6 +161,7 @@ class DeviceDataset:
             table[ci] = np.tile(ids, -(-width // len(ids)))[:width]
 
         self.canvas = canvas
+        self.mesh = None  # see shard
         self.image_labels = np.asarray(labels, np.int32)  # staged order
         self.images = _to_device(host, self.device)    # [n_img, H, W, 3] u8
         self.table = torch.from_numpy(table).to(self.device)
@@ -164,9 +171,26 @@ class DeviceDataset:
             # and the array's mapping; the read happens in the copy
             print(f"[device_data] staged {len(paths)} images "
                   f"({host.nbytes / 1e6:.1f} MB uint8) -> {self.device}: "
-                  f"{'stage cache' if self.from_cache else 'decoded'} "
-                  f"{t1 - t0:.2f} s, read and copy "
+                  f"{self.decoder} {t1 - t0:.2f} s, read and copy "
                   f"{time.perf_counter() - t1:.2f} s", flush=True)
+
+    def shard(self, mesh) -> "DeviceDataset":
+        """A shallow copy for episode-parallel runs (JAX
+        device_dataset.py:209-228): the split on this rank's device (each
+        rank stages it on its own card), and episode batches cut to this
+        rank's rows. Every rank draws the whole global batch's episodes
+        and augmentation from the same generator and keeps its rows, so a
+        seed gives the N-rank run the one-process run's episodes. A batch
+        that does not divide over the ranks is padded by wrapping
+        (parallel.mesh.pad_rows): eval trims the duplicates. The receiver
+        is left as it was."""
+        new = copy.copy(self)
+        new.device = mesh.device
+        new.images = self.images.to(mesh.device)
+        new.table = self.table.to(mesh.device)
+        new.counts = self.counts.to(mesh.device)
+        new.mesh = mesh
+        return new
 
     def generator(self, seed: int) -> torch.Generator:
         """A generator on this split's device, seeded."""
@@ -183,9 +207,9 @@ class DeviceDataset:
     def sample_episodes(self, gen: torch.Generator, n_way: int,
                         n_support: int, n_query: int,
                         batch: int = 1) -> torch.Tensor:
-        """[batch, n_way, S+Q, H, W, 3] uint8 on the device."""
-        return self.images[self.sample_episode_ids(
-            gen, n_way, n_support + n_query, batch)]
+        """[batch, n_way, S+Q, H, W, 3] uint8 on the device (this rank's
+        rows of them when sharded)."""
+        return _draw(self, gen, n_way, n_support, n_query, batch, None)
 
     def epoch(self, seed: int, n_way: int, n_support: int, n_query: int,
               n_episodes: int, episode_batch: int = 1,
@@ -213,31 +237,51 @@ def _check_augment(ds: DeviceDataset, augment_to: Optional[int]) -> None:
 
 def _draw(ds: DeviceDataset, gen, n_way, n_support, n_query, batch,
           augment_to):
-    x = ds.sample_episodes(gen, n_way, n_support, n_query, batch)
-    if augment_to is not None:
-        from .device_aug import augment
+    k = n_support + n_query
+    ids = ds.sample_episode_ids(gen, n_way, k, batch)
+    rows = None
+    if ds.mesh is not None:
+        from ..parallel.mesh import pad_rows
 
-        x = augment(gen, x, augment_to)
+        rows = pad_rows(batch, ds.mesh).to(ds.device)
+        local = rows.shape[0] // ds.mesh.size
+        rows = rows[ds.mesh.rank * local:(ds.mesh.rank + 1) * local]
+        ids = ids[rows]
+    x = ds.images[ids]
+    if augment_to is not None:
+        from .device_aug import apply_augment, draw_augment
+
+        per = n_way * k  # images an episode
+        draws = draw_augment(gen, batch * per, x.shape[-3], augment_to,
+                             ds.device)
+        if rows is not None:
+            idx = (rows[:, None] * per + torch.arange(
+                per, device=ds.device)).reshape(-1)
+            draws = tuple(d[idx] for d in draws)
+        x = apply_augment(x, draws, augment_to)
     return x
 
 
 def make_fused_epoch(model, ds: DeviceDataset, n_way: int, n_support: int,
                      n_query: int, episode_batch: int,
-                     augment_to: Optional[int] = None):
+                     augment_to: Optional[int] = None, step=None):
     """sample -> (augment) -> train_step as one device loop (JAX
     device_dataset.py:278-333, a lax.scan there).
 
     Returns chunk(gen, length, batch=episode_batch) -> (metrics, last):
     `length` training steps on episodes drawn from `gen`; `metrics` holds
     each of train_step's metrics stacked over the steps, still on the
-    device; `last` is the last episode batch (for the telemetry)."""
+    device; `last` is the last episode batch (for the telemetry). `step`
+    maps an episode batch to its metrics in place of model.train_step
+    (the episode-parallel step)."""
     _check_augment(ds, augment_to)
+    step = step or model.train_step
 
     def chunk(gen: torch.Generator, length: int, batch: int = episode_batch):
         steps = []
         for _ in range(length):
             x = _draw(ds, gen, n_way, n_support, n_query, batch, augment_to)
-            steps.append(model.train_step(x))
+            steps.append(step(x))
         return {k: torch.stack([m[k] for m in steps]) for k in steps[0]}, x
 
     return chunk
@@ -249,13 +293,15 @@ def make_fused_eval(model, ds: DeviceDataset, n_way: int, n_support: int,
     device_dataset.py:336-361). Returns eval_chunk(gen, length,
     batch=episode_batch) -> per-episode accuracy% [length, batch] on the
     device. `correct` maps an episode batch to its accuracies in place of
-    model.batch_correct (the test-time heads)."""
+    model.batch_correct (the test-time heads, the episode-parallel eval,
+    whose padded rows are trimmed here)."""
     correct = correct or model.batch_correct
 
     def eval_chunk(gen: torch.Generator, length: int,
                    batch: int = episode_batch) -> torch.Tensor:
         return torch.stack([
-            correct(ds.sample_episodes(gen, n_way, n_support, n_query, batch))
+            correct(ds.sample_episodes(gen, n_way, n_support, n_query,
+                                       batch))[:batch]
             for _ in range(length)])
 
     return eval_chunk

@@ -7,14 +7,17 @@ Copy of the PIL path of deep_kernel_transfer_tpu/data/transforms.py
   eval:  Scale(1.15x), CenterCrop
 
 emitting uint8 NHWC pixels, which the trunk normalises on the device
-(models/backbones.py::preprocess_input). The JAX package's native C++
-decoder is not ported (ROADMAP queue A, item 5). PIL is imported only
-inside the functions that decode, so the device-data path, which reads
-staged tensors, runs without it.
+(models/backbones.py::preprocess_input). Where the native C++ decoder
+builds (`native/`), `TransformPipeline.load` and `load_batch` decode and
+transform in one native pass, as the JAX package's do; else PIL. PIL is
+imported only inside the functions that decode, so the device-data path,
+which reads staged tensors, runs without it.
 """
 from __future__ import annotations
 
 import numpy as np
+
+from .. import native
 
 JITTER_PARAMS = dict(Brightness=0.4, Contrast=0.4, Color=0.4)
 _BILINEAR = 2  # PIL.Image.BILINEAR
@@ -67,22 +70,23 @@ def sample_crop_box(w: int, h: int, rng: np.random.RandomState):
 class TransformPipeline:
     """aug/eval pipelines of reference data/datamgr.py:38-46, with the
     random draws from a numpy RandomState in the JAX package's order (crop
-    box, jitter factors, flip), so a seed gives the same images."""
+    box, jitter factors, flip), so a seed gives the same images whichever
+    decoder runs. `use_native` None takes the native decoder when it
+    builds (JAX transforms.py:105-185); False forces PIL."""
 
-    def __init__(self, image_size: int, aug: bool, seed: int = 0):
+    def __init__(self, image_size: int, aug: bool, seed: int = 0,
+                 use_native: bool | None = None):
         self.image_size = image_size
         self.aug = aug
         self.rng = np.random.RandomState(seed)
+        if use_native is None:
+            use_native = native.available()
+        self.use_native = use_native
 
     def __call__(self, img) -> np.ndarray:
         if self.aug:
             w, h = img.size
-            box = sample_crop_box(w, h, self.rng)
-            rand = self.rng.rand(len(JITTER_PARAMS))
-            factors = tuple(alpha * (rand[i] * 2.0 - 1.0) + 1
-                            for i, alpha in enumerate(JITTER_PARAMS.values()))
-            flip = bool(self.rng.rand() < 0.5)
-            return self._apply_aug(img, box, factors, flip)
+            return self._apply_aug(img, *self._draw_aug_params(w, h))
         img = scale(img, self.image_size)
         img = center_crop(img, self.image_size)
         return self._emit(img)
@@ -90,7 +94,18 @@ class TransformPipeline:
     def _emit(self, img) -> np.ndarray:
         return np.asarray(img.convert("RGB"), np.uint8)
 
+    def _draw_aug_params(self, w: int, h: int):
+        """The aug draws (crop box, jitter factors, flip) in the stream
+        order both decoders share."""
+        box = sample_crop_box(w, h, self.rng)
+        rand = self.rng.rand(len(JITTER_PARAMS))
+        factors = tuple(alpha * (rand[i] * 2.0 - 1.0) + 1
+                        for i, alpha in enumerate(JITTER_PARAMS.values()))
+        flip = bool(self.rng.rand() < 0.5)
+        return box, factors, flip
+
     def _apply_aug(self, img, box, factors, flip: bool) -> np.ndarray:
+        """The drawn aug parameters applied through PIL (no draw)."""
         if box is None:
             box = fallback_crop_box(*img.size)
         left, top, cw, ch = box
@@ -103,12 +118,52 @@ class TransformPipeline:
         return self._emit(img)
 
     def load(self, path: str) -> np.ndarray:
-        """Decode and transform one file."""
-        return self(load_image(path))
+        """Decode and transform one file (natively where the decoder
+        builds; a format it does not read goes to PIL)."""
+        if not self.use_native:
+            return self(load_image(path))
+        if not self.aug:
+            try:
+                return _to_uint8(native.load_eval(path, self.image_size,
+                                                  normalize=False))
+            except IOError:
+                return self(load_image(path))
+        from PIL import Image
+
+        try:
+            with Image.open(path) as img:  # the header's size only
+                w, h = img.size
+        except IOError:
+            return self(load_image(path))  # no draw made yet
+        box, factors, flip = self._draw_aug_params(w, h)
+        if box is None:
+            box = fallback_crop_box(w, h)
+        try:
+            return _to_uint8(native.load_aug(path, self.image_size, box,
+                                             factors, flip, normalize=False))
+        except IOError:
+            # PIL with the same draws: a second draw would move the stream
+            # away from a PIL-only host's
+            return self._apply_aug(load_image(path), box, factors, flip)
 
     def load_batch(self, paths: list[str]) -> np.ndarray:
-        """Decode and transform many files: [n, size, size, 3]."""
+        """Decode and transform many files: [n, size, size, 3]. The eval
+        pipeline goes to the native decoder's thread pool in one call; aug
+        stays a file at a time, its draws coming from the RandomState.
+        Equal to a `load` loop."""
+        if self.use_native and not self.aug and paths:
+            try:
+                return _to_uint8(native.load_eval_batch(
+                    paths, self.image_size, normalize=False))
+            except IOError:
+                pass  # a file it does not read: a file at a time below
         return np.stack([self.load(p) for p in paths])
+
+
+def _to_uint8(arr: np.ndarray) -> np.ndarray:
+    """The native decoder's [0, 1] float32 as uint8 (JAX
+    transforms.py:227-230)."""
+    return np.clip(arr * 255.0 + 0.5, 0, 255).astype(np.uint8)
 
 
 def load_image(path: str):
@@ -119,7 +174,19 @@ def load_image(path: str):
 
 def load_canvas(path: str, size: int) -> np.ndarray:
     """The whole image resized to a square canvas (the reference's Scale
-    step with no crop, data/datamgr.py:32), uint8 HWC: what the on-device
-    augmentation crops from (JAX device_dataset.py:426-430)."""
+    step with no crop, data/datamgr.py:32), uint8 HWC, through PIL: what
+    the on-device augmentation crops from (JAX device_dataset.py:426-430)."""
     return np.asarray(load_image(path).resize((size, size), _BILINEAR),
                       np.uint8)
+
+
+def load_canvas_batch(paths: list[str], size: int) -> np.ndarray:
+    """`load_canvas` of many files: one call to the native decoder's thread
+    pool where it builds, else PIL a file at a time (JAX
+    device_dataset.py:433-446)."""
+    if native.available() and paths:
+        try:
+            return native.load_canvas_batch(paths, size)
+        except IOError:
+            pass  # a file it does not read: PIL below
+    return np.stack([load_canvas(p, size) for p in paths])

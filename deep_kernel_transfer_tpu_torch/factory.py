@@ -4,8 +4,8 @@ Port of deep_kernel_transfer_tpu/factory.py:26-220 (reference
 train.py:73-182, test.py:73-115) for DKT: filelist resolution with the
 cross / cross_char settings, image-size rules, default epoch schedules,
 the checkpoint-directory naming that test.py and test_regression.py rely
-on, and every classification method (with the MAML omniglot overrides). More than one
-device waits for ROADMAP queue A, item 9.
+on, every classification method (with the MAML omniglot overrides), and
+the episode-parallel mesh of the CLIs.
 """
 from __future__ import annotations
 
@@ -91,14 +91,43 @@ def default_stop_epoch(params) -> int:
     return 600
 
 
-def check_devices(params) -> None:
-    """The port runs on one device; --n_devices > 1 is ROADMAP queue A,
-    item 9."""
-    n = getattr(params, "n_devices", None)
-    if n is not None and n > 1:
-        raise NotImplementedError(
-            f"--n_devices={n}: the episode-parallel trainer is not ported "
-            "yet (ROADMAP queue A, item 9)")
+def mesh_size(params, model, episode_batch: int, device) -> int:
+    """The number of episode-parallel ranks a run takes (JAX
+    factory.py:102-126): --n_devices N forces N; by default every local GPU
+    when there are several, the method has batch_loss_train and an
+    optimizer, and the episode batch divides over them; else 1. A forced N
+    that the method or the batch does not allow raises."""
+    from .parallel.mesh import local_device_count
+
+    n_req = getattr(params, "n_devices", None)
+    # the default is every device: a torchrun group's ranks, else the
+    # host's GPUs (the CPU is one device)
+    n = n_req or int(os.environ.get("WORLD_SIZE", 0)) or (
+        local_device_count(device) if device.type == "cuda" else 1)
+    if n <= 1:
+        return 1
+    supported = (hasattr(model, "batch_loss_train")
+                 and hasattr(model, "optimizer"))
+    if not supported or episode_batch % n != 0:
+        if n_req:
+            raise ValueError(
+                f"--n_devices={n_req} needs a method with batch_loss_train "
+                f"and --episode_batch divisible by it "
+                f"(episode_batch={episode_batch})")
+        return 1
+    return n
+
+
+def resolve_mesh(params, model, episode_batch: int, device):
+    """The episode-parallel Mesh of this rank (it joins the process group
+    that the CLI's spawn or torchrun started), or None for the
+    single-device path; `mesh_size`'s rules."""
+    n = mesh_size(params, model, episode_batch, device)
+    if n <= 1:
+        return None
+    from .parallel.mesh import make_mesh
+
+    return make_mesh(n, device)
 
 
 def use_device_data(params, data_file: str, image_size: int,

@@ -74,16 +74,27 @@ def merge_stats(stats: dict | None) -> None:
         bn.running_var.copy_(var)
 
 
-def train_step_body(method, xb: torch.Tensor) -> dict:
+def train_step_body(method, xb: torch.Tensor, average=None) -> dict:
     """One training step: loss and gradients over the episode batch, the
     optimizer update, then the BatchNorm running-average merge (JAX
-    methods/base.py:119-138)."""
+    methods/base.py:119-138). `average`, where given, replaces a list of
+    tensors in place by their means over the episode-parallel ranks
+    (parallel/mesh.py::make_sharded_train_step): the gradients, the
+    BatchNorm statistics and the loss go through it between the backward
+    and the update, which is what the JAX psum computes."""
     loss, stats = method.batch_loss_train(xb)
     method.optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    loss = loss.detach()
+    if average is not None:
+        loss = loss.clone()
+        average([p.grad for group in method.optimizer.param_groups
+                 for p in group["params"] if p.grad is not None]
+                + [t for pair in (stats or {}).values() for t in pair]
+                + [loss])
     method.optimizer.step()
     merge_stats(stats)
-    return {"loss": loss.detach()}
+    return {"loss": loss}
 
 
 class EpisodicMethod(nn.Module):
@@ -153,8 +164,8 @@ class EpisodicMethod(nn.Module):
     def episode_loss(self, x: torch.Tensor) -> torch.Tensor:
         return self.batch_loss(x[None])
 
-    def train_step(self, xb: torch.Tensor) -> dict:
-        return train_step_body(self, xb.to(self.device))
+    def train_step(self, xb: torch.Tensor, average=None) -> dict:
+        return train_step_body(self, xb.to(self.device), average)
 
     @torch.no_grad()
     def batch_scores(self, xb: torch.Tensor) -> torch.Tensor:

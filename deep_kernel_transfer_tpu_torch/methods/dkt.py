@@ -215,10 +215,11 @@ class DKT(nn.Module):
                                     float(self.spec.likelihood.fixed_noise))
         return self.spec.mll(gp, z[:, None], targets)
 
-    def train_step(self, xb: torch.Tensor) -> dict:
+    def train_step(self, xb: torch.Tensor, average=None) -> dict:
         """One optimizer step on the episode batch; returns the loss and
-        the hyperparameter telemetry (reference methods/DKT.py:148-157)."""
-        metrics = train_step_body(self, xb)
+        the hyperparameter telemetry (reference methods/DKT.py:148-157).
+        `average`: see base.train_step_body."""
+        metrics = train_step_body(self, xb, average)
         return {**metrics, **self._hyper_metrics()}
 
     @torch.no_grad()

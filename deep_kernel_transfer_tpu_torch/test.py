@@ -22,6 +22,14 @@ record/results.txt.
     other methods under --adaptation. The episodes are scored
     FEATURE_BATCH at a time; the finetunes draw from a torch.Generator.
 
+Episode parallelism (JAX test.py:135-165): the standard head from images
+takes --n_devices ranks, or by default every GPU when there are several
+and the episode batch divides; `main` starts them, itself rank 0, or joins
+the torchrun group it runs in. Each rank scores its slice of every episode
+batch and the accuracies are gathered; rank 0 alone prints and writes
+record/results.txt. --laplace, --adaptation of DKT and the feature cache
+run on one device.
+
 Runs on CUDA; `main(argv, device="cpu")` runs on the CPU.
 """
 from __future__ import annotations
@@ -31,6 +39,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from . import factory
 from ._device import resolve_device
@@ -42,6 +51,9 @@ from .io_utils import parse_args
 from .methods.base import ci95, query_accuracy
 from .methods.baseline import finetune_scores
 from .models.backbones import model_dict
+from .parallel.mesh import (in_group, make_sharded_eval, rank_device,
+                            replicate_tree, shard_episode_batch, spawn_ranks,
+                            wrap_pad_episodes)
 from .save_features import feature_file_path
 from .train import _set_seed
 from .utils.checkpoint import load_checkpoint, resolve_checkpoint_file
@@ -51,6 +63,11 @@ N_QUERY = 15  # reference test.py:142
 ADAPTATION_STEPS = 100  # JAX test.py:196
 FROM_IMAGES = ("DKT", "maml", "maml_approx")
 FEATURE_BATCH = 100  # feature episodes scored together
+
+
+def special_head(params) -> bool:
+    """DKT's --laplace or --adaptation: they run on one device."""
+    return params.method == "DKT" and (params.laplace or params.adaptation)
 
 
 def episode_scorer(model, params):
@@ -155,12 +172,19 @@ def single_test(params, seed: int, device) -> tuple[float, float]:
                                             split_for_test=params.split)
     episode_batch = max(params.episode_batch, 1)
     correct = episode_scorer(model, params)
+    mesh = (None if special_head(params)
+            else factory.resolve_mesh(params, model, episode_batch, device))
+    if mesh is not None:
+        replicate_tree(model, mesh)  # rank 0's weights on every rank
+        correct = make_sharded_eval(model, mesh)
 
     if factory.use_device_data(params, novel_file, image_size):
         # the whole split in device memory, episodes drawn on the card:
         # accuracies stay there until the protocol ends
         ds = cached_dataset(novel_file, image_size, device=device,
-                            verbose=True)
+                            verbose=mesh is None or mesh.rank == 0)
+        if mesh is not None:
+            ds = ds.shard(mesh)
         accs = fused_protocol_accs(
             make_fused_eval(model, ds, n_way, n_support, N_QUERY,
                             episode_batch, correct),
@@ -170,7 +194,13 @@ def single_test(params, seed: int, device) -> tuple[float, float]:
             novel_file, image_size, n_way, n_support, N_QUERY,
             n_episodes=params.n_iter, episode_batch=episode_batch, aug=False,
             seed=seed)
-        accs = torch.cat([correct(torch.from_numpy(xb)) for xb in loader])
+        accs = []
+        for xb in loader:
+            b = xb.shape[0]
+            if mesh is not None:  # every rank decodes, each keeps its slice
+                xb = shard_episode_batch(wrap_pad_episodes(xb, mesh)[0], mesh)
+            accs.append(correct(torch.as_tensor(xb))[:b])
+        accs = torch.cat(accs)
     accs = accs.cpu().numpy()
     return float(accs.mean()), ci95(accs)
 
@@ -181,16 +211,35 @@ def main(argv=None, device=None, return_runs: bool = False):
     with return_runs the runs' accuracies as a third item (JAX
     test.py:238-276)."""
     params = parse_args("test", argv)
-    factory.check_devices(params)
     device = resolve_device(device)
+    if (params.method in FROM_IMAGES and not special_head(params)
+            and not in_group()):
+        probe = factory.build_method(params, params.train_n_way,
+                                     params.n_shot, device)
+        n = factory.mesh_size(params, probe, max(params.episode_batch, 1),
+                              device)
+        if n > 1:
+            return spawn_ranks(n, device, run, params, device, return_runs)
+    return run(params, device, return_runs)
+
+
+def run(params, device, return_runs: bool = False):
+    """main's protocol with parsed flags on `device` (one rank's part where
+    a group is up; the ranks compute the same accuracies, rank 0 reports
+    them)."""
+    device = rank_device(device)
+    lead = not dist.is_initialized() or dist.get_rank() == 0
     accs, cis = [], []
     for r in range(params.repeat):
         acc, ci = single_test(params, seed=params.seed + r, device=device)
-        print(f"run {r}: {params.n_iter} episodes, acc = {acc:.2f}% +- "
-              f"{ci:.2f}%", flush=True)
+        if lead:
+            print(f"run {r}: {params.n_iter} episodes, acc = {acc:.2f}% +- "
+                  f"{ci:.2f}%", flush=True)
         accs.append(acc)
         cis.append(ci)
     acc, ci = float(np.mean(accs)), float(np.mean(cis))
+    if not lead:
+        return (acc, ci, accs) if return_runs else (acc, ci)
     print("-----------------------------")
     print(f"Seeds = {params.repeat} | Overall Test Acc = {acc:.2f}% +- "
           f"{ci:.2f}%")

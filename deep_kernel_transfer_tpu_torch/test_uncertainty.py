@@ -106,8 +106,7 @@ def main(argv=None, device=None) -> dict:
     means and standard deviations over the --repeat reseeded runs (JAX
     test_uncertainty.py:185-235)."""
     params = parse_args("test", argv)
-    factory.check_devices(params)
-    device = resolve_device(device)
+    device = resolve_device(device)  # --n_devices is not read, as in JAX
     collect = make_collector(params, device)
     one_vs_rest = params.method == "DKT"
 

@@ -13,8 +13,12 @@ per-way GP is written as gpytorch names it (reference methods/DKT.py
 :337-378), model.models.{w}.mean_module.constant,
 model.models.{w}.covar_module.raw_outputscale and
 model.models.{w}.covar_module.base_kernel.raw_{variance|lengthscale|offset}.
-That is the layout the JAX package imports (utils/torch_import.py), so its
-test.py evaluates a checkpoint of the port's train.
+Beside them are the entries a reference state_dict also holds and the JAX
+exporter writes: each BatchNorm's num_batches_tracked, a ConvBlock's
+layers again under their Sequential names, the GP mean's raw_constant and
+the likelihoods' raw noise. That is the layout the JAX package imports
+(utils/torch_import.py), so its test.py evaluates a checkpoint of the
+port's train, and the layout `export_checkpoint` writes.
 
 The regression methods keep the reference's own layouts, each part a
 state_dict (JAX utils/torch_export.py:339-385): DKTRegression as
@@ -62,8 +66,20 @@ def _gp_key(w: int, leaf: str) -> str:
     return p + "covar_module.base_kernel." + leaf.removeprefix("kernel.base.")
 
 
+# a ConvBlock's layers under their Sequential aliases: .C. -> .trunk.0.,
+# .BN. -> .trunk.1. (not ResNet's C1/BN1 or bn_out)
+_ALIAS = re.compile(r"\.(C|BN)\.(?=[a-z_]+$)")
+_ALIAS_INDEX = {"C": "0", "BN": "1"}
+
+
 def _reference_state(model) -> dict[str, torch.Tensor]:
-    """The reference layout of a method's state_dict, on the CPU."""
+    """The reference layout of a method's state_dict, on the CPU, as the
+    JAX exporter writes it (utils/torch_export.py:61-226): the module's
+    entries; each BatchNorm's num_batches_tracked (0); a ConvBlock's C and
+    BN again under their Sequential aliases trunk.0 and trunk.1 (the
+    reference registers those layers twice); a DKT's per-way GP in
+    gpytorch's names, with the mean's raw_constant beside its constant and
+    the likelihoods' raw noise under GreaterThan(1e-4)."""
     out = {}
     for name, value in model.state_dict().items():
         value = value.detach().cpu()
@@ -75,6 +91,25 @@ def _reference_state(model) -> dict[str, torch.Tensor]:
             leaf.removeprefix("kernel.base."), ())
         for w in range(value.shape[0]):
             out[_gp_key(w, leaf)] = value[w].reshape(shape).clone()
+            if leaf == "mean.constant":
+                out[f"model.models.{w}.mean_module.raw_constant"] = (
+                    value[w].reshape(()).clone())
+    for name in [n for n in out if n.endswith(".running_var")]:
+        out[name.removesuffix("running_var") + "num_batches_tracked"] = (
+            torch.zeros((), dtype=torch.int64))
+    for name in list(out):
+        alias = _ALIAS.sub(lambda m: f".trunk.{_ALIAS_INDEX[m.group(1)]}.",
+                           name)
+        if alias != name:
+            out[alias] = out[name].clone()
+    if type(model).__name__ == "DKT":
+        raw = torch.tensor(np.asarray(_noise_raw(
+            model.spec.likelihood.fixed_noise), np.float32).reshape(1))
+        for w in range(model.gp.tree()["mean"]["constant"].shape[0]):
+            out[f"model.models.{w}.likelihood.noise_covar.raw_noise"] = (
+                raw.clone())
+            out[f"likelihood.likelihoods.{w}.noise_covar.raw_noise"] = (
+                raw.clone())
     return out
 
 
@@ -97,6 +132,12 @@ def _softplus(x):
 def _inv_softplus(y):
     y = np.asarray(y, np.float64)
     return y + np.log1p(-np.exp(-y))
+
+
+def _noise_raw(noise):
+    """gpytorch's raw noise of a noise value: softplus(raw) + 1e-4."""
+    return _inv_softplus(np.maximum(np.asarray(noise, np.float64)
+                                    - _NOISE_FLOOR, 1e-8))
 
 
 def _reference_gp_shape(leaf: str, value: torch.Tensor) -> tuple:
@@ -124,8 +165,7 @@ def _regression_blob(model) -> dict:
         if value is not None:
             gp[key] = value.reshape(_reference_gp_shape(leaf, value))
     gp["mean_module.constant"] = sd["gp.mean.constant"].reshape(1)
-    noise = _softplus(sd["gp.likelihood.raw_noise"].numpy())
-    raw = _inv_softplus(np.maximum(noise - _NOISE_FLOOR, 1e-8))
+    raw = _noise_raw(_softplus(sd["gp.likelihood.raw_noise"].numpy()))
     likelihood = {"noise_covar.raw_noise": torch.tensor(
         np.asarray(raw, np.float32).reshape(1))}
     return {"gp": gp, "likelihood": likelihood, "net": net}

@@ -15,8 +15,8 @@ that accuracies stay short of 100%), on the CPU:
   * a CUB-layout 84-px run with --train_aug --device_data on;
   * the device-data path with PIL unimportable, on staged splits.
 
-The JAX side decodes through PIL: its native decoder is switched off
-(deep_kernel_transfer_tpu.native.available -> False).
+Both packages decode through PIL: their native decoders are switched off
+(`native.available -> False` in each), so the two decode alike.
 """
 import json
 import os
@@ -32,6 +32,7 @@ import jax
 import jax.numpy as jnp
 
 from deep_kernel_transfer_tpu import native as jnative
+from deep_kernel_transfer_tpu_torch import native as tnative
 from deep_kernel_transfer_tpu.methods import DKT as JDKT
 from deep_kernel_transfer_tpu.models import backbones as jbb
 from deep_kernel_transfer_tpu.utils import checkpoint as jckpt
@@ -77,6 +78,7 @@ def dataset_cwd(tmp_path_factory):
     os.chdir(root)
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jnative, "available", lambda: False)
+        mp.setattr(tnative, "available", lambda: False)
         mp.delenv("DKT_NO_STAGE_CACHE", raising=False)
         yield root
     os.chdir(old)

@@ -29,6 +29,7 @@ import torch
 from PIL import Image
 
 from deep_kernel_transfer_tpu import native as jnative
+from deep_kernel_transfer_tpu_torch import native as tnative
 from deep_kernel_transfer_tpu_torch import save_features as tsave
 from deep_kernel_transfer_tpu_torch import test as ttest
 from deep_kernel_transfer_tpu_torch import test_uncertainty as tunc
@@ -67,6 +68,7 @@ def dataset_cwd(tmp_path_factory):
     os.chdir(root)
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jnative, "available", lambda: False)
+        mp.setattr(tnative, "available", lambda: False)
         yield root
     os.chdir(old)
 

@@ -2,8 +2,9 @@
 JAX package's: the eval and canvas pixels of the host transforms, the
 episodes of EpisodicDataLoader for a seed, the stage cache read across
 the two packages, the device sampler's composition rules and the staging
-budget. The JAX side takes its PIL path: its native decoder is switched
-off for the test (deep_kernel_transfer_tpu.native.available -> False).
+budget. Both packages take their PIL path: their native decoders are
+switched off for the test (`native.available -> False` in each;
+tests/test_torch_native.py holds the two native decoders together).
 Pixels and episodes must be identical.
 """
 import json
@@ -15,6 +16,7 @@ import torch
 from PIL import Image
 
 from deep_kernel_transfer_tpu import native as jnative
+from deep_kernel_transfer_tpu_torch import native as tnative
 from deep_kernel_transfer_tpu.data import device_dataset as jdd
 from deep_kernel_transfer_tpu.data import filelist as jfl
 from deep_kernel_transfer_tpu.data import transforms as jtr
@@ -28,6 +30,7 @@ SIZES = [8, 8, 8, 3, 8]  # class 3 is smaller than S+Q = 5
 @pytest.fixture(autouse=True)
 def no_native(monkeypatch):
     monkeypatch.setattr(jnative, "available", lambda: False)
+    monkeypatch.setattr(tnative, "available", lambda: False)
 
 
 @pytest.fixture(scope="module")
@@ -115,7 +118,7 @@ def test_stage_cache_read_across_packages(filelist, canvas, monkeypatch):
         raise AssertionError("decoded instead of reading the stage cache")
 
     with monkeypatch.context() as mp:
-        mp.setattr(tdd, "load_canvas", no_decode)
+        mp.setattr(tdd, "load_canvas_batch", no_decode)
         mp.setattr(tdd.TransformPipeline, "load_batch", no_decode)
         tds = tdd.DeviceDataset(jf, 16, canvas=canvas, device="cpu")
     assert tds.from_cache and np.array_equal(tds.images.numpy(), want)

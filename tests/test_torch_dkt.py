@@ -213,10 +213,12 @@ def test_needs_cuda_unless_cpu_is_asked(monkeypatch):
 
 def test_port_imports_no_jax():
     """With jax, flax, optax and matplotlib unimportable, every module of
-    the port imports (the regression track's, the sines scripts and the
-    accuracy runners among them), and a CPU train step and eval of DKT,
-    of DKT regression and of the sines scripts run; nothing of the JAX
-    package gets loaded."""
+    the port imports (the regression track's, the sines scripts, the
+    accuracy runners, the native decoder, the episode-parallel mesh, the
+    profiling helpers and the export CLI among them; importing builds no
+    decoder and starts no process group), and a CPU train step and eval
+    of DKT, of DKT regression and of the sines scripts run; nothing of the
+    JAX package gets loaded."""
     code = r"""
 import importlib, pkgutil, sys
 for name in ("jax", "flax", "optax", "matplotlib"):
@@ -228,9 +230,15 @@ for mod in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
 new = ["methods.dkt_regression", "methods.feature_transfer", "data.qmul",
        "data.sines", "train_regression", "test_regression", "sines.common",
        "sines.train_DKT", "sines.train_FT", "sines.train_MAML",
-       "benchmarks.regression_real"]
+       "benchmarks.regression_real", "native", "parallel.mesh",
+       "utils.profiling", "export_checkpoint"]
 missing = [n for n in new if port.__name__ + "." + n not in sys.modules]
 assert not missing, missing
+import torch.distributed as dist
+from deep_kernel_transfer_tpu_torch import native
+# importing built no decoder and started no process group
+assert native._lib is None and not native._build_failed
+assert not dist.is_initialized()
 from deep_kernel_transfer_tpu_torch.methods import DKT, DKTRegression
 from deep_kernel_transfer_tpu_torch.models import MLP2, ConvNet, Conv3
 from deep_kernel_transfer_tpu_torch.sines import train_FT, train_MAML

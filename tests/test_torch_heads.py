@@ -25,6 +25,7 @@ import jax
 import jax.numpy as jnp
 
 from deep_kernel_transfer_tpu import native as jnative
+from deep_kernel_transfer_tpu_torch import native as tnative
 from deep_kernel_transfer_tpu.gp import laplace as jlap
 from deep_kernel_transfer_tpu.gp.kernels import sq_dist as jsq_dist
 from deep_kernel_transfer_tpu.methods import DKT as JDKT
@@ -257,8 +258,8 @@ CLI = ["--dataset=omniglot", "--model=Conv4", "--method=DKT",
 @pytest.fixture(scope="module")
 def trained_cwd(tmp_path_factory):
     """A tiny omniglot-layout set (6 classes of 20 faintly signed 28-px
-    JPEGs) and a port checkpoint after one short epoch; the JAX package's
-    native decoder is switched off."""
+    JPEGs) and a port checkpoint after one short epoch; both packages'
+    native decoders are switched off."""
     import os
 
     root = tmp_path_factory.mktemp("heads_cli")
@@ -285,6 +286,7 @@ def trained_cwd(tmp_path_factory):
         with pytest.MonkeyPatch.context() as mp:
             # the JAX side decodes through PIL too, as the port does
             mp.setattr(jnative, "available", lambda: False)
+            mp.setattr(tnative, "available", lambda: False)
             ttrain.main(CLI + ["--stop_epoch=1", "--n_train_episodes=6",
                                "--device_data=off"], device="cpu")
             yield root

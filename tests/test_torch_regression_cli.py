@@ -15,7 +15,8 @@
   * a JAX npz checkpoint read by the port; --resume; the --task_batch
     rule; the three sines scripts through `main([...])`.
 
-The JAX side decodes through PIL (its native decoder is switched off).
+Both packages decode through PIL (their native decoders are switched
+off).
 """
 import os
 
@@ -27,6 +28,7 @@ from PIL import Image
 import jax
 
 from deep_kernel_transfer_tpu import native as jnative
+from deep_kernel_transfer_tpu_torch import native as tnative
 from deep_kernel_transfer_tpu.gp import kernels as jkernels
 from deep_kernel_transfer_tpu.utils import checkpoint as jckpt
 from deep_kernel_transfer_tpu.utils import torch_import as jimport
@@ -75,6 +77,7 @@ def qmul_cwd(tmp_path_factory):
     os.chdir(root)
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jnative, "available", lambda: False)
+        mp.setattr(tnative, "available", lambda: False)
         yield root
     os.chdir(old)
 
