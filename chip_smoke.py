@@ -61,8 +61,18 @@
      processes on the one card over gloo, 16 episodes each, against the
      one-process step on the 32 (loss, averaged gradients, weights, and
      the weights equal on both ranks); (c) `train.main --n_devices=1`,
-     and --n_devices=2 refused on one card; then StepTimer and a
-     torch.profiler trace (utils/profiling.py) around two train steps;
+     and --n_devices=2 refused on one card; (d) four gloo ranks on the
+     card, dp=2 x tp=2, the conv weights and their Adam moments stored as
+     tp chunks (tensor_sharding_rules, min_size 1 << 10), one step on
+     16 episodes (cut from 32: four ranks of 16 do not fit the card)
+     against the one-process step on them (the same checks, the
+     gathered weights equal on all four, a rank's bytes half the
+     replicated ones, one launch a rank, ms a step beside the
+     one-process step's); (e) protonet, matchingnet, relationnet, maml
+     and BaselineTrain's batch-sharded step on two gloo ranks (Conv4,
+     84 px, 4 episodes or 16 images) against one process; then StepTimer
+     and a torch.profiler trace (utils/profiling.py) around two train
+     steps;
    then the exact GP's Woodbury route against its dense route at N=4096,
    D=256: agreement, ms and peak memory of each; and every comparison
    method (protonet, matchingnet, relationnet, relationnet_softmax, maml,
@@ -1519,7 +1529,62 @@ def build_main_model(device, episode: torch.Tensor, seed: int = 0):
                    episode, torch.Generator().manual_seed(seed))
 
 
-def _two_rank_step(rank: int, port: int, inputs: str, out: str,
+def _join_card_group(rank: int, n: int, port: int,
+                     device_type: str) -> torch.device:
+    """Rank `rank` of n on the one card (or the CPU): TF32 off, the card
+    made current, a gloo group with the device's tensors joined (NCCL
+    refuses several ranks on one GPU). Returns the device."""
+    import torch.distributed as dist
+
+    device = torch.device(device_type)
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        device = torch.device("cuda", 0)
+        torch.cuda.set_device(device)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=n, rank=rank)
+    return device
+
+
+def run_ranks_on_card(target, n: int, *args, timeout: float = 600) -> float:
+    """target(rank, n, port, *args) in n processes started with `spawn`;
+    raises when a rank fails. Returns the seconds, the ranks' start
+    included."""
+    from deep_kernel_transfer_tpu_torch.parallel.mesh import free_port
+
+    ctx = multiprocessing.get_context("spawn")
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=target, args=(r, n, port) + args)
+             for r in range(n)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout)
+        if p.is_alive():
+            p.terminate()
+            p.join()
+    codes = [p.exitcode for p in procs]
+    if any(codes):
+        raise AssertionError(f"the {n} ranks exited with {codes}")
+    return time.perf_counter() - t0
+
+
+def _weights_spread(state: dict) -> float:
+    """The largest difference of any entry of `state` between the ranks
+    (a collective)."""
+    import torch.distributed as dist
+
+    flat = torch.cat([v.reshape(-1).float() for v in state.values()])
+    ref = flat.clone()
+    dist.broadcast(ref, 0)
+    spread = (flat - ref).abs().max().reshape(1)
+    dist.all_reduce(spread, op=dist.ReduceOp.MAX)
+    return float(spread)
+
+
+def _two_rank_step(rank: int, n: int, port: int, inputs: str, out: str,
                    device_type: str) -> None:
     """Rank `rank` of two on the one card (or the CPU), over gloo with the
     device's tensors: rank 0's weights broadcast, one sharded train step
@@ -1532,32 +1597,20 @@ def _two_rank_step(rank: int, port: int, inputs: str, out: str,
     from deep_kernel_transfer_tpu_torch.parallel import (
         Mesh, make_sharded_train_step, replicate_tree, shard_episode_batch)
 
-    device = torch.device(device_type)
-    if device.type == "cuda":
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        device = torch.device("cuda", 0)
-        torch.cuda.set_device(device)
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
-                            world_size=2, rank=rank)
+    device = _join_card_group(rank, n, port, device_type)
     try:
         blob = torch.load(inputs, map_location=device, weights_only=True)
         # rank 1 draws other weights: replicate_tree must overwrite them
         model = build_main_model(device, blob["x"][0], seed=rank)
         if rank == 0:
             model.load_state_dict(blob["state"])
-        mesh = Mesh(rank, 2, device)
+        mesh = Mesh(rank, n, device)
         replicate_tree([model, model.optimizer], mesh)
         fused_linear_mll.launches = 0
         m = make_sharded_train_step(model, mesh)(
             shard_episode_batch(blob["x"], mesh))
         torch.cuda.synchronize()
-        flat = torch.cat([v.reshape(-1).float()
-                          for v in model.state_dict().values()])
-        ref = flat.clone()
-        dist.broadcast(ref, 0)
-        spread = (flat - ref).abs().max().reshape(1)
-        dist.all_reduce(spread, op=dist.ReduceOp.MAX)
+        spread = _weights_spread(model.state_dict())
         launches = torch.tensor([float(fused_linear_mll.launches)],
                                 device=device)
         dist.all_reduce(launches)
@@ -1567,64 +1620,106 @@ def _two_rank_step(rank: int, port: int, inputs: str, out: str,
                                   for n, p in model.named_parameters()},
                         "state": {k: v.cpu()
                                   for k, v in model.state_dict().items()},
-                        "spread": float(spread), "launches": int(launches)},
+                        "spread": spread, "launches": int(launches)},
                        out)
     finally:
         dist.destroy_process_group()
+
+
+def one_process_step(model, *batch, parts: int = 1) -> dict:
+    """The reference of a sharded step: the state before, the loss, the
+    gradients and the state after one step of `model` on the whole batch,
+    on the CPU. With parts > 1, the sharded step's arithmetic in one
+    process: the loss, gradients and BatchNorm statistics of each of the
+    ranks' parts of the batch in turn, combined as the ranks combine them
+    (the mean; the sum for MAML's summed loss), then the update."""
+    from deep_kernel_transfer_tpu_torch.methods.base import merge_stats
+    from deep_kernel_transfer_tpu_torch.parallel.mesh import loss_reduction
+
+    state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    if parts == 1:
+        loss = float(model.train_step(*batch)["loss"])
+    else:
+        summed = loss_reduction(model) == "sum"
+        model.optimizer.zero_grad(set_to_none=True)
+        losses, stats = [], []
+        for xb in batch[0].chunk(parts):
+            part_loss, part_stats = model.batch_loss_train(xb)
+            (part_loss if summed else part_loss / parts).backward()
+            losses.append(float(part_loss.detach()))
+            stats.append(part_stats or {})
+        loss = sum(losses) if summed else sum(losses) / parts
+        model.optimizer.step()
+        merge_stats({bn: tuple(torch.stack([s[bn][i] for s in stats]).mean(0)
+                               for i in (0, 1)) for bn in stats[0]})
+    return {"state": state, "loss": loss,
+            "grads": {n: p.grad.to("cpu", copy=True)
+                      for n, p in model.named_parameters()},
+            "after": {k: v.to("cpu", copy=True)
+                      for k, v in model.state_dict().items()}}
+
+
+def sharded_agreement(got: dict, want: dict, lrs: dict) -> tuple:
+    """(loss relative difference, gradient distance as a fraction of the
+    one-process gradient's norm, the tensor furthest off in its own norm,
+    largest weight difference after the step in units of 2 lr) of a
+    sharded step against the one-process step."""
+    loss_rel = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+    # the gradient as one vector, against its norm: in bf16 the conv
+    # biases before a train-mode BatchNorm (exact gradient 0) hold rounding
+    # noise of 1e-3, which no per-tensor scale separates from an error
+    names = sorted(want["grads"])
+    diff = torch.cat([(got["grads"][n] - want["grads"][n]).reshape(-1)
+                      for n in names])
+    grad_rel = float(diff.norm() / torch.cat(
+        [want["grads"][n].reshape(-1) for n in names]).norm())
+    worst = max(names, key=lambda n: float(
+        (got["grads"][n] - want["grads"][n]).norm()
+        / (want["grads"][n].norm() + 1e-12)))
+    step_dev = max(float((got["state"][n] - want["after"][n]).abs().max()
+                         / (2 * lr)) for n, lr in lrs.items())
+    return loss_rel, grad_rel, worst, step_dev
+
+
+# bf16 trunk: the convolutions' gradients of 16 episodes round to bf16
+# (2^-8 relative) apart from those of 32, by other algorithms; a missing
+# or wrong average is off by tens of percent. Adam's first step moves a
+# weight by lr * sign(g): a flipped sign moves it 2 lr
+SHARDED_LIMITS = {"loss": 1e-3, "grad": 2e-2, "step": 1.01}
+
+
+def check_sharded_agreement(label: str, agreement: tuple) -> None:
+    loss_rel, grad_rel, _, step_dev = agreement
+    if not (loss_rel < SHARDED_LIMITS["loss"]
+            and grad_rel < SHARDED_LIMITS["grad"]
+            and step_dev < SHARDED_LIMITS["step"]):
+        raise AssertionError(f"{label} disagrees with one process")
+
+
+def dkt_lrs(model) -> dict:
+    return {n: model.gp_lr if n.startswith("gp.") else model.feature_lr
+            for n, _ in model.named_parameters()}
 
 
 def check_two_ranks_one_card(device, card: str, x: torch.Tensor) -> int:
     """(b): two processes on the one card over gloo (NCCL refuses two ranks
     on one GPU), 16 episodes each, against the one-process step on the 32.
     Returns the ranks' kernel launches."""
-    from deep_kernel_transfer_tpu_torch.parallel.mesh import free_port
-
     ref = build_main_model(device, x[0], seed=1)
-    state = {k: v.detach().clone() for k, v in ref.state_dict().items()}
-    loss1 = float(ref.train_step(x)["loss"])
-    grads1 = {n: p.grad.detach().cpu() for n, p in ref.named_parameters()}
-    after1 = {k: v.cpu() for k, v in ref.state_dict().items()}
-    lrs = {n: ref.gp_lr if n.startswith("gp.") else ref.feature_lr
-           for n, _ in ref.named_parameters()}
+    lrs = dkt_lrs(ref)
+    one = one_process_step(ref, x)
     del ref
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as d:
         inputs, out = os.path.join(d, "in.pt"), os.path.join(d, "out.pt")
-        torch.save({"state": state, "x": x}, inputs)
-        ctx = multiprocessing.get_context("spawn")
-        port = free_port()
-        t0 = time.perf_counter()
-        procs = [ctx.Process(target=_two_rank_step,
-                             args=(r, port, inputs, out, device.type))
-                 for r in (0, 1)]
-        for p in procs:
-            p.start()
-        for p in procs:
-            p.join(600)
-            if p.is_alive():
-                p.terminate()
-                p.join()
-        codes = [p.exitcode for p in procs]
-        if codes != [0, 0]:
-            raise AssertionError(f"the two ranks exited with {codes}")
+        torch.save({"state": one["state"], "x": x}, inputs)
+        wall = run_ranks_on_card(_two_rank_step, 2, inputs, out, device.type)
         two = torch.load(out, weights_only=True)
-    wall = time.perf_counter() - t0
-    loss_rel = abs(two["loss"] - loss1) / abs(loss1)
-    # the gradient as one vector, against its norm: in bf16 the conv
-    # biases before a train-mode BatchNorm (exact gradient 0) hold rounding
-    # noise of 1e-3, which no per-tensor scale separates from an error
-    names = sorted(grads1)
-    diff = torch.cat([(two["grads"][n] - grads1[n]).reshape(-1)
-                      for n in names])
-    grad_rel = float(diff.norm() / torch.cat(
-        [grads1[n].reshape(-1) for n in names]).norm())
-    worst = max(names, key=lambda n: float(
-        (two["grads"][n] - grads1[n]).norm() / (grads1[n].norm() + 1e-12)))
-    step_dev = max(float((two["state"][n] - after1[n]).abs().max()
-                         / (2 * lr)) for n, lr in lrs.items())
+    agreement = sharded_agreement(two, one, lrs)
+    loss_rel, grad_rel, worst, step_dev = agreement
     print(f"episode parallel (b), 2 ranks on one card over gloo, 16 "
           f"episodes each: loss {two['loss']!r} against the one-process "
-          f"{loss1!r} (relative {loss_rel:.3e}), averaged gradient "
+          f"{one['loss']!r} (relative {loss_rel:.3e}), averaged gradient "
           f"{grad_rel:.3e} of the one-process gradient's norm away from it "
           f"(the tensor furthest off in its own norm: {worst}), weights "
           f"after the Adam step within "
@@ -1632,17 +1727,304 @@ def check_two_ranks_one_card(device, card: str, x: torch.Tensor) -> int:
           f"ranks {two['spread']!r}, fused_linear_mll launches "
           f"{two['launches']} (both ranks), {wall:.1f} s with the ranks' "
           f"start [{card}]", flush=True)
-    # bf16 trunk: the convolutions' gradients of 16 episodes round to bf16
-    # (2^-8 relative) apart from those of 32, by other algorithms; a
-    # missing or wrong average is off by tens of percent. Adam's first
-    # step moves a weight by lr * sign(g): a flipped sign moves it 2 lr
-    if not (loss_rel < 1e-3 and grad_rel < 2e-2 and step_dev < 1.01):
-        raise AssertionError("two ranks disagree with one process")
+    check_sharded_agreement("two ranks", agreement)
     if two["spread"] != 0.0:
         raise AssertionError("the ranks' weights differ after the step")
     if two["launches"] != 2:
         raise AssertionError("want one fused-MLL launch on each rank")
     return two["launches"]
+
+
+TP_TIMED_STEPS = 3
+# episodes of the TP part: at the main path's 32, four ranks of 16
+# episodes each hold about 19 GiB (peak and the allocator's reserve) and
+# do not fit beside each other on the 80 GB card, so the part is cut to 16
+TP_B = 16
+
+
+def _tp_rank_step(rank: int, n: int, port: int, inputs: str, out: str,
+                  device_type: str) -> None:
+    """Rank `rank` of dp=2 x tp=2 on the one card over gloo: rank 0's
+    weights broadcast, the parameters that tensor_sharding_rules(min_size=
+    1 << 10) picks stored as this rank's tp chunk, one tensor-parallel
+    step on the dp group's half of the batch, then TP_TIMED_STEPS more,
+    timed. Rank 0 saves the loss, the averaged gradient (chunks
+    gathered), the gathered weights, their largest difference between the
+    ranks and each rank's bytes, chunks, launches, peak and ms."""
+    import torch.distributed as dist
+
+    from deep_kernel_transfer_tpu_torch.ops.fused_mll import fused_linear_mll
+    from deep_kernel_transfer_tpu_torch.parallel import (
+        gather_state, grid_mesh, make_sharded_train_step, replicate_tree,
+        shard_episode_batch, tensor_sharding_rules)
+
+    device = _join_card_group(rank, n, port, device_type)
+    try:
+        blob = torch.load(inputs, map_location=device, weights_only=True)
+        model = build_main_model(device, blob["x"][0], seed=rank)
+        if rank == 0:
+            model.load_state_dict(blob["state"])
+        mesh = grid_mesh(2, 2, device)
+        replicate_tree([model, model.optimizer], mesh)
+        rules = tensor_sharding_rules(model, mesh, min_size=1 << 10)
+        replicated = sum(3 * p.numel() * p.element_size()  # p, Adam's two
+                         for name, p in model.named_parameters()
+                         if rules[name] is not None)
+        step = make_sharded_train_step(model, mesh, param_shardings=rules)
+        xb = shard_episode_batch(blob["x"], mesh)
+        torch.cuda.reset_peak_memory_stats(device)
+        fused_linear_mll.launches = 0
+        m = step(xb)
+        torch.cuda.synchronize()
+        launches = fused_linear_mll.launches
+        grads, local, distinct = {}, 0, []
+        for name, p in model.named_parameters():
+            g = p.grad
+            owner, sep, rest = name.partition(".parametrizations.")
+            if sep:
+                leaf = rest.removesuffix(".original")
+                dim = model.get_submodule(owner).parametrizations[leaf][0].dim
+                parts = [torch.empty_like(g) for _ in range(mesh.tp)]
+                dist.all_gather(parts, g, group=mesh.tp_group)
+                g = torch.cat(parts, dim)
+                chunks = [torch.empty_like(p) for _ in range(mesh.tp)]
+                dist.all_gather(chunks, p.detach(), group=mesh.tp_group)
+                distinct.append(not torch.equal(chunks[0], chunks[1]))
+                adam = model.optimizer.state[p]
+                local += sum(t.numel() * t.element_size() for t in
+                             (p, adam["exp_avg"], adam["exp_avg_sq"]))
+                name = f"{owner}.{leaf}"
+            grads[name] = g.to("cpu", copy=True)
+        # copies: the timed steps below move the weights
+        state = {k: v.to("cpu", copy=True)
+                 for k, v in gather_state(model).items()}
+        spread = _weights_spread(state)
+        peak = torch.cuda.max_memory_allocated(device)
+        reserved = torch.cuda.max_memory_reserved(device)
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(TP_TIMED_STEPS):
+            step(xb)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / TP_TIMED_STEPS * 1e3
+        facts = {"local": local, "replicated": replicated,
+                 "distinct": all(distinct) and bool(distinct),
+                 "launches": launches, "peak": peak, "reserved": reserved,
+                 "ms": ms,
+                 "n_sharded": len(distinct)}
+        everyone = [None] * n
+        dist.all_gather_object(everyone, facts)
+        if rank == 0:
+            torch.save({"loss": float(m["loss"]), "grads": grads,
+                        "state": state, "spread": spread,
+                        "ranks": everyone}, out)
+    finally:
+        dist.destroy_process_group()
+
+
+def check_tensor_parallel_one_card(device, card: str, x: torch.Tensor) -> int:
+    """(d): four processes on the one card over gloo, dp=2 x tp=2, the
+    main path's model with its conv weights (and their Adam moments)
+    stored as tp chunks, the first TP_B episodes of x split over the two
+    dp groups, against the one-process step on them. Returns the ranks'
+    kernel launches."""
+    x = x[:TP_B]
+    ref = build_main_model(device, x[0], seed=1)
+    lrs = dkt_lrs(ref)
+    one = one_process_step(ref, x)
+    one_ms = cuda_ms(lambda: ref.train_step(x), iters=TP_TIMED_STEPS,
+                     warmup=1)
+    del ref
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as d:
+        inputs, out = os.path.join(d, "in.pt"), os.path.join(d, "out.pt")
+        torch.save({"state": one["state"], "x": x}, inputs)
+        wall = run_ranks_on_card(_tp_rank_step, 4, inputs, out, device.type)
+        tp = torch.load(out, weights_only=True)
+    agreement = sharded_agreement(tp, one, lrs)
+    loss_rel, grad_rel, worst, step_dev = agreement
+    ranks = tp["ranks"]
+    launches = sum(r["launches"] for r in ranks)
+    print(f"tensor parallel (d), dp=2 x tp=2, 4 ranks on one card over "
+          f"gloo, {x.shape[0] // 2} episodes a dp group, "
+          f"{ranks[0]['n_sharded']} conv "
+          f"weights sharded (min_size 1 << 10): loss {tp['loss']!r} against "
+          f"the one-process {one['loss']!r} (relative {loss_rel:.3e}), "
+          f"averaged gradient {grad_rel:.3e} of the one-process gradient's "
+          f"norm away from it (furthest off: {worst}), weights after the "
+          f"step within {step_dev:.3e} x 2 lr, largest gathered-weight "
+          f"difference between the ranks {tp['spread']!r}; sharded leaves "
+          f"with Adam's moments {[r['local'] for r in ranks]} bytes a rank "
+          f"against {ranks[0]['replicated']} replicated; the tp ranks of a "
+          f"group hold different chunks: "
+          f"{all(r['distinct'] for r in ranks)}; fused_linear_mll launches "
+          f"{[r['launches'] for r in ranks]}; peak "
+          f"{[round(r['peak'] / 2**30, 2) for r in ranks]} GiB a rank, "
+          f"{sum(r['peak'] for r in ranks) / 2**30:.2f} together, "
+          f"{sum(r['reserved'] for r in ranks) / 2**30:.2f} reserved; "
+          f"{wall:.1f} s with the ranks' start [{card}]", flush=True)
+    step_ms = statistics.median(r["ms"] for r in ranks)
+    print(f"tensor parallel (d): {step_ms:.3f} ms a step (median over the ranks of {TP_TIMED_STEPS} "
+          f"steps, host clock; four ranks share one card, so this checks "
+          f"the path, not its speed) beside the one-process step's "
+          f"{one_ms:.3f} ms (CUDA events, {TP_TIMED_STEPS} steps) "
+          f"[{card}]", flush=True)
+    check_sharded_agreement("the tensor-parallel step", agreement)
+    if tp["spread"] != 0.0:
+        raise AssertionError("the ranks' gathered weights differ")
+    if not all(r["local"] * 2 == r["replicated"] and r["distinct"]
+               and r["n_sharded"] for r in ranks):
+        raise AssertionError("a rank does not hold one tp chunk of the "
+                             "sharded leaves and their Adam moments")
+    if launches != 4:
+        raise AssertionError("want one fused-MLL launch on each rank")
+    return launches
+
+
+ZOO_PARALLEL = ("protonet", "matchingnet", "relationnet", "maml")
+ZOO_PARALLEL_B = 4  # episodes: two a rank, MAML's n_task
+ZOO_ACC_LIMIT = 2.5  # points an episode: two of its 80 queries
+
+
+def build_zoo_method(name: str, device, example: torch.Tensor):
+    """A comparison method as the CLIs build it (ZOO_ARGS: Conv4, 84 px,
+    5-way 5-shot), initialised from a fixed seed."""
+    from deep_kernel_transfer_tpu_torch import factory
+    from deep_kernel_transfer_tpu_torch.io_utils import parse_args
+
+    params = parse_args("train", ZOO_ARGS + [f"--method={name}"])
+    method = factory.build_method(params, MAIN_WAY, MAIN_SHOT, device)
+    return method.init(example, torch.Generator().manual_seed(0))
+
+
+def _zoo_ranks(rank: int, n: int, port: int, inputs: str, out: str,
+               device_type: str) -> None:
+    """Rank `rank` of two on the one card over gloo, cuDNN deterministic:
+    for each comparison method, its weights loaded, one sharded step on
+    the rank's episodes and the sharded eval of all; BaselineTrain's step
+    on the rank's half of the minibatch. Rank 0 saves the losses,
+    gradients, states and accuracies."""
+    import torch.distributed as dist
+
+    from deep_kernel_transfer_tpu_torch.parallel import (
+        Mesh, make_sharded_eval, make_sharded_train_step,
+        shard_episode_batch)
+
+    device = _join_card_group(rank, n, port, device_type)
+    torch.backends.cudnn.deterministic = True
+    try:
+        blob = torch.load(inputs, map_location=device, weights_only=True)
+        mesh = Mesh(rank, n, device)
+        results = {}
+        for name, state in blob["states"].items():
+            batch = ((blob["x_base"], blob["y_base"]) if name == "baseline"
+                     else (blob["x"],))
+            method = build_zoo_method(name, device, batch[0][0]
+                                      if name != "baseline" else batch[0])
+            method.load_state_dict(state)
+            m = make_sharded_train_step(method, mesh)(
+                *(shard_episode_batch(t, mesh) for t in batch))
+            results[name] = {
+                "loss": float(m["loss"]),
+                "grads": {k: p.grad.cpu()
+                          for k, p in method.named_parameters()},
+                "state": {k: v.cpu()
+                          for k, v in method.state_dict().items()}}
+            if name != "baseline":
+                results[name]["accs"] = make_sharded_eval(method, mesh)(
+                    shard_episode_batch(blob["x"], mesh)).cpu()
+            results[name]["spread"] = _weights_spread(method.state_dict())
+        if rank == 0:
+            torch.save(results, out)
+    finally:
+        dist.destroy_process_group()
+
+
+def check_zoo_two_ranks_one_card(device, card: str) -> None:
+    """(e): protonet, matchingnet, relationnet and maml, one sharded step
+    and the sharded eval on two gloo ranks of the one card (4 episodes,
+    two a rank), each against the same step in one process on the same
+    episodes in the ranks' parts (one_process_step(parts=2)): the bf16
+    trunks round differently at another batch size, and move the
+    gradient by up to a third of its norm (PERF.md section 6), so
+    the whole batch in one process is printed beside it, unchecked; and
+    BaselineTrain's batch-sharded step (16 images, eight a rank,
+    BatchNorm over the whole minibatch, f32) against its one-process step
+    on the 16. cuDNN deterministic on both sides: without it MAML's
+    second-order step does not repeat itself from run to run."""
+    gen = torch.Generator(device=device).manual_seed(9)
+    x = torch.randint(0, 256, (ZOO_PARALLEL_B, MAIN_WAY, MAIN_SHOT + 16,
+                               MAIN_PX, MAIN_PX, 3), generator=gen,
+                      device=device, dtype=torch.uint8)
+    x_base = torch.randint(0, 256, (16, MAIN_PX, MAIN_PX, 3), generator=gen,
+                           device=device, dtype=torch.uint8)
+    y_base = torch.randint(0, 64, (16,), generator=gen, device=device)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        ones, wholes, evals, lrs = {}, {}, {}, {}
+        for name in ZOO_PARALLEL + ("baseline",):
+            if name == "baseline":
+                method = build_zoo_method(name, device, x_base)
+                ones[name] = one_process_step(method, x_base, y_base)
+            else:
+                method = build_zoo_method(name, device, x[0])
+                ones[name] = one_process_step(method, x, parts=2)
+                whole = build_zoo_method(name, device, x[0])
+                whole.load_state_dict(ones[name]["state"])
+                wholes[name] = one_process_step(whole, x)
+                evals[name] = whole
+            lrs[name] = {k: method.lr for k, _ in method.named_parameters()}
+        with tempfile.TemporaryDirectory() as d:
+            inputs, out = (os.path.join(d, "in.pt"),
+                           os.path.join(d, "out.pt"))
+            torch.save({"states": {k: v["state"] for k, v in ones.items()},
+                        "x": x, "x_base": x_base, "y_base": y_base}, inputs)
+            wall = run_ranks_on_card(_zoo_ranks, 2, inputs, out,
+                                     device.type)
+            two = torch.load(out, weights_only=True)
+        failed = []
+        for name, got in two.items():
+            agreement = sharded_agreement(got, ones[name], lrs[name])
+            loss_rel, grad_rel, worst, step_dev = agreement
+            extra = ""
+            if name != "baseline":
+                evals[name].load_state_dict(got["state"])
+                want = evals[name].batch_correct(x).cpu()
+                if not (got["accs"].shape == want.shape and float(
+                        (got["accs"] - want).abs().max()) <= ZOO_ACC_LIMIT):
+                    failed.append(f"{name} eval")
+                w_loss, w_grad, _, _ = sharded_agreement(got, wholes[name],
+                                                         lrs[name])
+                extra = (f"; sharded eval of the {ZOO_PARALLEL_B} episodes "
+                         f"{got['accs'].tolist()} against one process's "
+                         f"{want.tolist()} on those weights; against the "
+                         f"whole batch in one process (unchecked): loss "
+                         f"{w_loss:.3e}, gradient {w_grad:.3e} of its norm")
+            reference = ("the one-process step on the ranks' parts"
+                         if name != "baseline" else
+                         "the one-process step on the 16")
+            print(f"episode parallel (e), {name}, 2 ranks on one card over "
+                  f"gloo: loss {got['loss']!r} against {reference} "
+                  f"{ones[name]['loss']!r} (relative {loss_rel:.3e}), "
+                  f"averaged gradient {grad_rel:.3e} of its norm away "
+                  f"(furthest off: {worst}), weights after the step within "
+                  f"{step_dev:.3e} x 2 lr, ranks' weights apart by at most "
+                  f"{got['spread']!r}{extra} [{card}]", flush=True)
+            try:
+                check_sharded_agreement(name, agreement)
+            except AssertionError:
+                failed.append(name)
+            if got["spread"] != 0.0:
+                failed.append(f"{name} ranks' weights")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    print(f"episode parallel (e): the zoo's sharded steps in one spawn, "
+          f"{wall:.1f} s with the ranks' start [{card}]", flush=True)
+    if failed or set(two) != set(ones):
+        raise AssertionError(f"the zoo's sharded steps disagree with one "
+                             f"process: {failed}")
 
 
 def drive_parallel_path(device, card: str) -> dict:
@@ -1658,6 +2040,10 @@ def drive_parallel_path(device, card: str) -> dict:
     (c) `train.main --n_devices=1` (resolve_mesh: the single-device path)
         on a small generated miniImagenet layout, 2 steps; and
         --n_devices=2, which must refuse the one card;
+    (d) four ranks on the one card over gloo, dp=2 x tp=2, the conv
+        weights stored as tp chunks (check_tensor_parallel_one_card);
+    (e) the comparison methods and BaselineTrain on two gloo ranks
+        (check_zoo_two_ranks_one_card);
     then StepTimer and trace around two train steps."""
     import torch.distributed as dist
 
@@ -1747,6 +2133,11 @@ def drive_parallel_path(device, card: str) -> dict:
         finally:
             os.chdir(cwd)
             dd._CACHE.clear()
+
+    # (d) and (e)
+    torch.cuda.empty_cache()
+    launches += check_tensor_parallel_one_card(device, card, batches[0])
+    check_zoo_two_ranks_one_card(device, card)
 
     # the profiling helpers around two train steps
     timer = StepTimer()

@@ -177,11 +177,12 @@ class DeviceDataset:
     def shard(self, mesh) -> "DeviceDataset":
         """A shallow copy for episode-parallel runs (JAX
         device_dataset.py:209-228): the split on this rank's device (each
-        rank stages it on its own card), and episode batches cut to this
-        rank's rows. Every rank draws the whole global batch's episodes
-        and augmentation from the same generator and keeps its rows, so a
-        seed gives the N-rank run the one-process run's episodes. A batch
-        that does not divide over the ranks is padded by wrapping
+        rank stages it on its own card), and episode batches cut to the
+        rows of this rank's dp coordinate. Every rank draws the whole
+        global batch's episodes and augmentation from the same generator
+        and keeps its rows, so a seed gives the N-rank run the one-process
+        run's episodes. A batch that does not divide over the dp extent is
+        padded by wrapping
         (parallel.mesh.pad_rows): eval trims the duplicates. The receiver
         is left as it was."""
         new = copy.copy(self)
@@ -244,8 +245,10 @@ def _draw(ds: DeviceDataset, gen, n_way, n_support, n_query, batch,
         from ..parallel.mesh import pad_rows
 
         rows = pad_rows(batch, ds.mesh).to(ds.device)
-        local = rows.shape[0] // ds.mesh.size
-        rows = rows[ds.mesh.rank * local:(ds.mesh.rank + 1) * local]
+        # the rows of this rank's dp coordinate: the tp ranks of one dp
+        # group take the same episodes and augmentation
+        local = rows.shape[0] // ds.mesh.dp
+        rows = rows[ds.mesh.dp_rank * local:(ds.mesh.dp_rank + 1) * local]
         ids = ids[rows]
     x = ds.images[ids]
     if augment_to is not None:

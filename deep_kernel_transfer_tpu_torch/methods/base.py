@@ -12,7 +12,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .._device import resolve_device
-from ..models.backbones import preprocess_input
+from ..models.backbones import BatchStats, preprocess_input
 
 
 def flatten_episode(x: torch.Tensor) -> torch.Tensor:
@@ -41,7 +41,7 @@ def ci95(acc_per_episode) -> float:
 
 
 def apply_trunk(module, x: torch.Tensor, train: bool, dtype=None,
-                ep_groups: int = 1):
+                ep_groups: int = 1, batch_sum=None):
     """Run a trunk with the reference's BatchNorm semantics and the
     mixed-precision law of the JAX package (methods/base.py:55-96).
 
@@ -56,8 +56,12 @@ def apply_trunk(module, x: torch.Tensor, train: bool, dtype=None,
         weights to bf16 (BatchNorm's scale and bias included);
       * BatchNorm statistics are float32;
       * the features come back as float32.
+
+    `batch_sum` (train mode): where the ranks split the batch between
+    them, a sum over the ranks with gradients (parallel.mesh.dp_sum); the
+    BatchNorm statistics are then the whole batch's (BatchStats).
     """
-    stats = {} if train else None
+    stats = BatchStats(batch_sum) if train else None
     if dtype is not None and dtype != torch.float32:
         x = preprocess_input(x).to(dtype)
     out = module(x, train, ep_groups, stats)
@@ -78,8 +82,9 @@ def train_step_body(method, xb: torch.Tensor, average=None) -> dict:
     """One training step: loss and gradients over the episode batch, the
     optimizer update, then the BatchNorm running-average merge (JAX
     methods/base.py:119-138). `average`, where given, replaces a list of
-    tensors in place by their means over the episode-parallel ranks
-    (parallel/mesh.py::make_sharded_train_step): the gradients, the
+    tensors in place by their means over the episode-parallel ranks (their
+    sums for a loss that sums its episodes, MAML's;
+    parallel/mesh.py::make_sharded_train_step): the gradients, the
     BatchNorm statistics and the loss go through it between the backward
     and the update, which is what the JAX psum computes."""
     loss, stats = method.batch_loss_train(xb)

@@ -66,19 +66,32 @@ class BaselineTrain(nn.Module):
                                           betas=(0.9, 0.999), eps=1e-8)
         return self
 
-    def loss(self, x: torch.Tensor, y: torch.Tensor):
-        """(mean cross-entropy over the minibatch, BatchNorm stats)."""
-        z, stats = apply_trunk(self.feature, x.to(self.device), train=True)
+    def loss(self, x: torch.Tensor, y: torch.Tensor, batch_sum=None):
+        """(mean cross-entropy over the minibatch, BatchNorm stats);
+        `batch_sum`: see base.apply_trunk."""
+        z, stats = apply_trunk(self.feature, x.to(self.device), train=True,
+                               batch_sum=batch_sum)
         scores = self.classifier(z)
         return F.cross_entropy(scores, y.to(self.device).long()), stats
 
-    def train_step(self, x: torch.Tensor, y: torch.Tensor) -> dict:
-        loss, stats = self.loss(x, y)
+    def train_step(self, x: torch.Tensor, y: torch.Tensor, average=None,
+                   batch_sum=None) -> dict:
+        """One Adam step on the minibatch (x, y). For a minibatch split
+        over ranks (parallel.make_sharded_train_step): `batch_sum` sums
+        the BatchNorm statistics' terms over them, and `average` replaces
+        the gradients, the statistics and the loss by their means over
+        them before the update, as in base.train_step_body."""
+        loss, stats = self.loss(x, y, batch_sum)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        loss = loss.detach()
+        if average is not None:
+            loss = loss.clone()
+            average([p.grad for p in self.parameters() if p.grad is not None]
+                    + [t for pair in stats.values() for t in pair] + [loss])
         self.optimizer.step()
         merge_stats(stats)
-        return {"loss": loss.detach()}
+        return {"loss": loss}
 
 
 def _linear_scores(p: list, z: torch.Tensor) -> torch.Tensor:

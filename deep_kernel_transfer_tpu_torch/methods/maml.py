@@ -26,6 +26,8 @@ from .base import EpisodicMethod, episode_labels, query_accuracy
 
 
 class MAML(EpisodicMethod):
+    loss_reduction = "sum"  # the episodes' losses (parallel.mesh)
+
     def __init__(self, backbone: nn.Module, n_way: int, n_support: int,
                  approx: bool = False, n_task: int = 4,
                  task_update_num: int = 5, train_lr: float = 0.01,

@@ -68,6 +68,19 @@ def conv_fanin_init_(weight: torch.Tensor, generator=None) -> None:
         weight.copy_(draw * math.sqrt(2.0 / (kh * kw * out)))
 
 
+class BatchStats(dict):
+    """The `stats` of a train-mode forward: BatchNorm module -> (new
+    running mean, new running var). `batch_sum`, where given, sums a
+    tensor over the ranks that split the batch between them, with
+    gradients (parallel.mesh.dp_sum): a BatchNorm over one group then
+    normalises by the whole batch's statistics, as the JAX package's does
+    on a batch-sharded array."""
+
+    def __init__(self, batch_sum=None):
+        super().__init__()
+        self.batch_sum = batch_sum
+
+
 class EpisodicBatchNorm(nn.Module):
     """BatchNorm over the channel axis (dim 1) with torch's running-average
     convention: new = (1-m) old + m batch, m = 0.1, unbiased running
@@ -75,7 +88,9 @@ class EpisodicBatchNorm(nn.Module):
     With ep_groups > 1 the running update is the per-episode update
     averaged over episodes. A float32 input takes the two-pass variance,
     a lower-precision one the one-pass E[x^2] - m^2 (JAX backbones.py
-    :125-139)."""
+    :125-139). Where `stats` is a BatchStats with a `batch_sum` and
+    ep_groups is 1, the statistics are those of the whole batch that the
+    ranks split between them."""
 
     momentum = 0.1
     eps = 1e-5
@@ -110,15 +125,30 @@ class EpisodicBatchNorm(nn.Module):
             xg = xf.reshape(ep_groups, x.shape[0] // ep_groups, *x.shape[1:])
             axes = (1,) + tuple(range(3, xg.dim()))  # all but group, channel
             bshape = (ep_groups, 1, c) + spatial
-            mean = xg.mean(dim=axes)  # [G, C]
-            if x.dtype == torch.float32:
-                var = torch.square(xg - mean.view(bshape)).mean(dim=axes)
+            batch_sum = getattr(stats, "batch_sum", None)
+            if batch_sum is not None and ep_groups == 1:
+                # the whole batch's statistics, its rows split over ranks
+                n = batch_sum(torch.full((1, 1), xg[0].numel() / c,
+                                         device=x.device))
+                mean = batch_sum(xg.sum(dim=axes)) / n
+                if x.dtype == torch.float32:
+                    var = batch_sum(torch.square(
+                        xg - mean.view(bshape)).sum(dim=axes)) / n
+                else:
+                    ex2 = batch_sum(torch.square(xg).sum(dim=axes)) / n
+                    var = torch.clamp(ex2 - torch.square(mean), min=0.0)
+                unbiased_factor = n / torch.clamp(n - 1.0, min=1.0)
             else:
-                ex2 = torch.square(xg).mean(dim=axes)
-                var = torch.clamp(ex2 - torch.square(mean), min=0.0)
-            if stats is not None:
+                mean = xg.mean(dim=axes)  # [G, C]
+                if x.dtype == torch.float32:
+                    var = torch.square(xg - mean.view(bshape)).mean(dim=axes)
+                else:
+                    ex2 = torch.square(xg).mean(dim=axes)
+                    var = torch.clamp(ex2 - torch.square(mean), min=0.0)
                 n = xg[0].numel() / c
-                unbiased = var.detach() * (n / max(n - 1.0, 1.0))
+                unbiased_factor = n / max(n - 1.0, 1.0)
+            if stats is not None:
+                unbiased = var.detach() * unbiased_factor
                 m = self.momentum
                 stats[self] = (
                     (1.0 - m) * self.running_mean + m * mean.detach().mean(0),

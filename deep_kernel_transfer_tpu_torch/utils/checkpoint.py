@@ -72,16 +72,19 @@ _ALIAS = re.compile(r"\.(C|BN)\.(?=[a-z_]+$)")
 _ALIAS_INDEX = {"C": "0", "BN": "1"}
 
 
-def _reference_state(model) -> dict[str, torch.Tensor]:
+def _reference_state(model, state: Optional[dict] = None
+                     ) -> dict[str, torch.Tensor]:
     """The reference layout of a method's state_dict, on the CPU, as the
     JAX exporter writes it (utils/torch_export.py:61-226): the module's
     entries; each BatchNorm's num_batches_tracked (0); a ConvBlock's C and
     BN again under their Sequential aliases trunk.0 and trunk.1 (the
     reference registers those layers twice); a DKT's per-way GP in
     gpytorch's names, with the mean's raw_constant beside its constant and
-    the likelihoods' raw noise under GreaterThan(1e-4)."""
+    the likelihoods' raw noise under GreaterThan(1e-4). `state` stands
+    for model.state_dict() where given."""
     out = {}
-    for name, value in model.state_dict().items():
+    for name, value in (model.state_dict() if state is None
+                        else state).items():
         value = value.detach().cpu()
         if not name.startswith("gp."):
             out[name] = value.clone()
@@ -200,14 +203,17 @@ def _load_regression(blob: dict, model) -> None:
                           strict=True)
 
 
-def save_checkpoint(path: str, model, epoch: int = -1) -> None:
+def save_checkpoint(path: str, model, epoch: int = -1,
+                    state: Optional[dict] = None) -> None:
     """torch.save of `model` in the reference layout: {'epoch', 'state'},
-    or a regression method's multi-part layout with its 'epoch'."""
+    or a regression method's multi-part layout with its 'epoch'. `state`
+    stands for model.state_dict() where given (the full state of a
+    tensor-parallel model, parallel.gather_state)."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     if type(model).__name__ in _REGRESSION_METHODS:
         blob = {"epoch": int(epoch), **_regression_blob(model)}
     else:
-        blob = {"epoch": int(epoch), "state": _reference_state(model)}
+        blob = {"epoch": int(epoch), "state": _reference_state(model, state)}
     torch.save(blob, path)
 
 

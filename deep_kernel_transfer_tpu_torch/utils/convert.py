@@ -94,6 +94,31 @@ def _dense(out: dict, prefix: str, dense: dict, rows=slice(None)) -> None:
     out[f"{prefix}.bias"] = _f32(dense["bias"])
 
 
+def flax_leaf_layout(model: torch.nn.Module, name: str):
+    """(dim, stack) of the port's parameter `name` in `model`: the JAX
+    leaf's trailing axis is dim `dim` of the port's tensor, over which
+    `stack` JAX leaves lie end to end; None where the JAX leaf has fewer
+    than 2 dimensions. From the layouts this module maps: conv kernels
+    HWIO -> OIHW and Dense kernels [in, out] -> Linear [out, in] put the
+    output axis at dim 0, as DistLinear's v -> weight_v does; an LSTM's
+    weight_ih/weight_hh stack its four gates' [in, H] kernels, H at dim
+    0; DistLinear's g [out] -> weight_g [out, 1], biases and BatchNorm
+    vectors are 1-D leaves; any other parameter (a GP leaf, the spectral
+    mixture's [Q, D]) keeps the JAX shape."""
+    owner, _, leaf = name.rpartition(".")
+    module = model.get_submodule(owner)
+    if isinstance(module, (torch.nn.Conv2d, torch.nn.Linear)):
+        return (0, 1) if leaf == "weight" else None
+    if isinstance(module, (torch.nn.LSTM, torch.nn.LSTMCell)):
+        return (0, 4) if leaf.startswith("weight_") else None
+    if leaf == "weight_v":
+        return (0, 1)
+    if leaf == "weight_g":
+        return None
+    ndim = getattr(module, leaf).dim()
+    return (ndim - 1, 1) if ndim >= 2 else None
+
+
 def _sub(stats: dict | None, key: str):
     return None if stats is None else stats[key]
 
