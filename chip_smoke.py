@@ -70,11 +70,18 @@
      replicated ones, one launch a rank, ms a step beside the
      one-process step's); (e) protonet, matchingnet, relationnet, maml
      and BaselineTrain's batch-sharded step on two gloo ranks (Conv4,
-     84 px, 4 episodes or 16 images) against one process; then StepTimer
-     and a torch.profiler trace (utils/profiling.py) around two train
-     steps;
+     84 px, 4 episodes or 16 images) against one process (the whole
+     batch in one process printed beside it); (f) second-order MAML and
+     MatchingNet on four gloo ranks, dp=2 x tp=2, f32, their conv and
+     LSTM weights as tp chunks, against one process; then StepTimer and a
+     torch.profiler trace (utils/profiling.py) around two train steps;
    then the exact GP's Woodbury route against its dense route at N=4096,
-   D=256: agreement, ms and peak memory of each; and every comparison
+   D=256: agreement, ms and peak memory of each; the Woodbury CLI
+   workload at full width (250 glyph classes, DKT Conv4S bncossim, 20-way
+   15-shot, 8 episodes a batch, 28 px) cut to 2 epochs: the step A/B's
+   episodes/s on both routes, `train`, `test` on both arms, routes
+   N = 620 and 300 checked, no kernel launched, the arms' accuracies
+   within 0.2 points and above a floor; and every comparison
    method (protonet, matchingnet, relationnet, relationnet_softmax, maml,
    maml_approx, baseline, baseline++) through `train`, `save_features`
    and `test` (and `test --adaptation` for maml and relationnet) on a
@@ -86,9 +93,9 @@
    against the card on one 24-person batch, `train_regression` (Conv3,
    --task_batch=1) for 10 epochs each and `test_regression` on each
    checkpoint, with ms a per-person and a batched step, s an epoch, peak
-   GiB and a profile of one epoch; and the sines scripts (train_DKT 1000
-   iterations with the 500-task eval, train_FT 1000 with 50 tasks,
-   train_MAML 200 meta-steps with 50 tasks).
+   GiB and a profile of one epoch; and the sines scripts (train_DKT 500
+   iterations with a 250-task eval, train_FT 500 with 50 tasks,
+   train_MAML 100 meta-steps with 50 tasks).
 6. Prints one JSON line of kernel results, then as its last line
    {"ok": true, "device": {...}}.
 
@@ -1279,6 +1286,69 @@ def drive_woodbury_path(device, card: str) -> None:
           {"mll rel": 1e-4, "posterior mean abs": 1e-4})
 
 
+# the Woodbury CLI part: the workload at full width, depth cut to 2 epochs
+WOODBURY_CLI_EPOCHS = 2
+WOODBURY_CLI_ARMS_LIMIT = 0.2  # points between the two arms' accuracies
+# percent; chance is 5% at 20 ways. Set 21 points below the 81.13% that
+# the first run of this part reached on an H100 80GB HBM3 at 700 W
+WOODBURY_CLI_FLOOR = 60.0
+
+
+def drive_woodbury_cli_path(device, card: str) -> None:
+    """The Woodbury CLI workload (deep_kernel_transfer_tpu_torch/
+    benchmarks/woodbury_workload.py) at full width: 250 glyph classes of
+    28-px JPEGs, DKT on Conv4S with the bncossim kernel, 20-way 15-shot,
+    8 episodes a batch; depth cut to WOODBURY_CLI_EPOCHS epochs. The step
+    A/B (episodes/s of the train step and the eval, Woodbury route against
+    force_dense), `train`, then `test` (600 episodes, one run) on both
+    arms, every kernel's launches counted from 0. The runner fails unless
+    ExactGP routes N = 620 (train) and N = 300 (eval) to Woodbury in the
+    routed arm and to the dense Gram in the force_dense arm; this part
+    fails unless no kernel of the port launched (the route is cuBLAS and
+    cuSOLVER products), the two arms' accuracies lie within
+    WOODBURY_CLI_ARMS_LIMIT points and both above WOODBURY_CLI_FLOOR."""
+    from deep_kernel_transfer_tpu_torch.benchmarks import woodbury_workload
+
+    counters = kernel_counters()
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        rows = woodbury_workload.main(
+            [f"--epochs={WOODBURY_CLI_EPOCHS}", "--repeat=1",
+             f"--root={root}", f"--report={os.path.join(root, 'r.json')}"],
+            device=device)
+    wall = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    acc = {arm: rows[f"{key}_acc"]
+           for arm, key in woodbury_workload.ARMS.items()}
+    print(f"Woodbury CLI part, 20-way 15-shot, B = 8, 28 px: step A/B "
+          f"train {rows['glyphs20w_woodbury_train_eps_per_sec']:.2f} "
+          f"episodes/s on the Woodbury route against "
+          f"{rows['glyphs20w_dense_train_eps_per_sec']:.2f} dense, eval "
+          f"{rows['glyphs20w_woodbury_eval_eps_per_sec']:.2f} against "
+          f"{rows['glyphs20w_dense_eval_eps_per_sec']:.2f} (CUDA events, 10 "
+          f"calls after 2 warm-up); routes: step A/B "
+          f"{rows['glyphs20w_woodbury_routes']} and "
+          f"{rows['glyphs20w_dense_routes']}, train "
+          f"{rows['glyphs20w_train_routes']}, test "
+          f"{rows['glyphs20w_dkt_20way_15shot_routes']} and "
+          f"{rows['glyphs20w_dense_20way_15shot_routes']}; train "
+          f"{rows['glyphs20w_dkt_train_s']:.1f} s ({WOODBURY_CLI_EPOCHS} "
+          f"epochs), test {rows['glyphs20w_dkt_20way_15shot_test_s']:.1f} s "
+          f"(Woodbury) and {rows['glyphs20w_dense_20way_15shot_test_s']:.1f}"
+          f" s (dense); accuracy {acc['woodbury']:.2f}% (Woodbury) and "
+          f"{acc['dense']:.2f}% (dense), floor {WOODBURY_CLI_FLOOR}%; "
+          f"launches {launches}; {wall:.1f} s in all [{card}]", flush=True)
+    if any(launches.values()):
+        raise AssertionError(f"the Woodbury CLI part launched {launches}")
+    if abs(acc["woodbury"] - acc["dense"]) > WOODBURY_CLI_ARMS_LIMIT:
+        raise AssertionError("the Woodbury and dense arms' accuracies part")
+    if min(acc.values()) <= WOODBURY_CLI_FLOOR:
+        raise AssertionError("the Woodbury CLI run's accuracy is below its "
+                             "floor")
+
+
 # -- DKT on ResNet10 at 224 px ------------------------------------------------
 
 RES_B, RES_PX, RES_QUERY = 8, 224, 16  # N = 5 * (5 + 16) = 105
@@ -1742,6 +1812,32 @@ TP_TIMED_STEPS = 3
 TP_B = 16
 
 
+def tp_gradients_and_bytes(model, mesh) -> tuple:
+    """(every gradient on the host, a tp chunk's all-gathered; the bytes
+    this rank holds of the tp-sharded weights with Adam's two moments of
+    them; for each sharded weight, whether the tp ranks hold different
+    chunks) after a tensor-parallel step (a collective over the tp
+    group)."""
+    import torch.distributed as dist
+
+    from deep_kernel_transfer_tpu_torch.parallel.mesh import tp_chunks
+
+    chunks = tp_chunks(model)
+    grads, local, distinct = {}, 0, []
+    for name, p in model.named_parameters():
+        g = p.grad
+        if name in chunks:
+            g = chunks[name].gather(g)
+            parts = [torch.empty_like(p) for _ in range(mesh.tp)]
+            dist.all_gather(parts, p.detach(), group=mesh.tp_group)
+            distinct.append(not torch.equal(parts[0], parts[1]))
+            adam = model.optimizer.state[p]
+            local += sum(t.numel() * t.element_size() for t in
+                         (p, adam["exp_avg"], adam["exp_avg_sq"]))
+        grads[name] = g.to("cpu", copy=True)
+    return grads, local, distinct
+
+
 def _tp_rank_step(rank: int, n: int, port: int, inputs: str, out: str,
                   device_type: str) -> None:
     """Rank `rank` of dp=2 x tp=2 on the one card over gloo: rank 0's
@@ -1777,24 +1873,7 @@ def _tp_rank_step(rank: int, n: int, port: int, inputs: str, out: str,
         m = step(xb)
         torch.cuda.synchronize()
         launches = fused_linear_mll.launches
-        grads, local, distinct = {}, 0, []
-        for name, p in model.named_parameters():
-            g = p.grad
-            owner, sep, rest = name.partition(".parametrizations.")
-            if sep:
-                leaf = rest.removesuffix(".original")
-                dim = model.get_submodule(owner).parametrizations[leaf][0].dim
-                parts = [torch.empty_like(g) for _ in range(mesh.tp)]
-                dist.all_gather(parts, g, group=mesh.tp_group)
-                g = torch.cat(parts, dim)
-                chunks = [torch.empty_like(p) for _ in range(mesh.tp)]
-                dist.all_gather(chunks, p.detach(), group=mesh.tp_group)
-                distinct.append(not torch.equal(chunks[0], chunks[1]))
-                adam = model.optimizer.state[p]
-                local += sum(t.numel() * t.element_size() for t in
-                             (p, adam["exp_avg"], adam["exp_avg_sq"]))
-                name = f"{owner}.{leaf}"
-            grads[name] = g.to("cpu", copy=True)
+        grads, local, distinct = tp_gradients_and_bytes(model, mesh)
         # copies: the timed steps below move the weights
         state = {k: v.to("cpu", copy=True)
                  for k, v in gather_state(model).items()}
@@ -1887,19 +1966,24 @@ ZOO_PARALLEL_B = 4  # episodes: two a rank, MAML's n_task
 ZOO_ACC_LIMIT = 2.5  # points an episode: two of its 80 queries
 
 
-def build_zoo_method(name: str, device, example: torch.Tensor):
+def build_zoo_method(name: str, device, example: torch.Tensor,
+                     feature_dtype: str | None = None):
     """A comparison method as the CLIs build it (ZOO_ARGS: Conv4, 84 px,
-    5-way 5-shot), initialised from a fixed seed."""
+    5-way 5-shot), initialised from a fixed seed; `feature_dtype` replaces
+    the trunk's dtype (bf16 but MAML's and the baselines' f32)."""
     from deep_kernel_transfer_tpu_torch import factory
     from deep_kernel_transfer_tpu_torch.io_utils import parse_args
 
     params = parse_args("train", ZOO_ARGS + [f"--method={name}"])
     method = factory.build_method(params, MAIN_WAY, MAIN_SHOT, device)
+    if feature_dtype is not None:
+        method.feature_dtype = getattr(torch, feature_dtype)
     return method.init(example, torch.Generator().manual_seed(0))
 
 
 def _zoo_ranks(rank: int, n: int, port: int, inputs: str, out: str,
-               device_type: str) -> None:
+               device_type: str, feature_dtype: str | None,
+               cudnn: bool) -> None:
     """Rank `rank` of two on the one card over gloo, cuDNN deterministic:
     for each comparison method, its weights loaded, one sharded step on
     the rank's episodes and the sharded eval of all; BaselineTrain's step
@@ -1913,6 +1997,7 @@ def _zoo_ranks(rank: int, n: int, port: int, inputs: str, out: str,
 
     device = _join_card_group(rank, n, port, device_type)
     torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.enabled = cudnn
     try:
         blob = torch.load(inputs, map_location=device, weights_only=True)
         mesh = Mesh(rank, n, device)
@@ -1921,7 +2006,8 @@ def _zoo_ranks(rank: int, n: int, port: int, inputs: str, out: str,
             batch = ((blob["x_base"], blob["y_base"]) if name == "baseline"
                      else (blob["x"],))
             method = build_zoo_method(name, device, batch[0][0]
-                                      if name != "baseline" else batch[0])
+                                      if name != "baseline" else batch[0],
+                                      feature_dtype)
             method.load_state_dict(state)
             m = make_sharded_train_step(method, mesh)(
                 *(shard_episode_batch(t, mesh) for t in batch))
@@ -1941,7 +2027,22 @@ def _zoo_ranks(rank: int, n: int, port: int, inputs: str, out: str,
         dist.destroy_process_group()
 
 
-def check_zoo_two_ranks_one_card(device, card: str) -> None:
+def zoo_episodes(device) -> tuple:
+    """(x [4, 5, 21, 84, 84, 3] uint8 episodes, x_base [16, 84, 84, 3],
+    y_base [16]) of parts (e) and (f), from one seed on the card."""
+    gen = torch.Generator(device=device).manual_seed(9)
+    x = torch.randint(0, 256, (ZOO_PARALLEL_B, MAIN_WAY, MAIN_SHOT + 16,
+                               MAIN_PX, MAIN_PX, 3), generator=gen,
+                      device=device, dtype=torch.uint8)
+    x_base = torch.randint(0, 256, (16, MAIN_PX, MAIN_PX, 3), generator=gen,
+                           device=device, dtype=torch.uint8)
+    y_base = torch.randint(0, 64, (16,), generator=gen, device=device)
+    return x, x_base, y_base
+
+
+def check_zoo_two_ranks_one_card(device, card: str,
+                                 feature_dtype: str | None = None,
+                                 cudnn: bool = True) -> None:
     """(e): protonet, matchingnet, relationnet and maml, one sharded step
     and the sharded eval on two gloo ranks of the one card (4 episodes,
     two a rank), each against the same step in one process on the same
@@ -1952,26 +2053,32 @@ def check_zoo_two_ranks_one_card(device, card: str) -> None:
     BaselineTrain's batch-sharded step (16 images, eight a rank,
     BatchNorm over the whole minibatch, f32) against its one-process step
     on the 16. cuDNN deterministic on both sides: without it MAML's
-    second-order step does not repeat itself from run to run."""
-    gen = torch.Generator(device=device).manual_seed(9)
-    x = torch.randint(0, 256, (ZOO_PARALLEL_B, MAIN_WAY, MAIN_SHOT + 16,
-                               MAIN_PX, MAIN_PX, 3), generator=gen,
-                      device=device, dtype=torch.uint8)
-    x_base = torch.randint(0, 256, (16, MAIN_PX, MAIN_PX, 3), generator=gen,
-                           device=device, dtype=torch.uint8)
-    y_base = torch.randint(0, 64, (16,), generator=gen, device=device)
+    second-order step does not repeat itself from run to run.
+    `feature_dtype="float32"` runs every trunk in f32, and `cudnn=False`
+    takes PyTorch's own convolutions and LSTMs for cuDNN's on both sides
+    (ROADMAP C4: whether the whole batch's gradient in one process parts
+    from the ranks' by more than f32 rounding, and whether cuDNN's choice
+    of algorithm by batch size is what moves it). Not run by main():
+    a probe, see the README."""
+    x, x_base, y_base = zoo_episodes(device)
+    label = ("(e)" if feature_dtype is None and cudnn else
+             f"(e, {feature_dtype or 'default'} trunks, cuDNN "
+             f"{'on' if cudnn else 'off'})")
     deterministic = torch.backends.cudnn.deterministic
+    enabled = torch.backends.cudnn.enabled
     torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.enabled = cudnn
     try:
         ones, wholes, evals, lrs = {}, {}, {}, {}
         for name in ZOO_PARALLEL + ("baseline",):
             if name == "baseline":
-                method = build_zoo_method(name, device, x_base)
+                method = build_zoo_method(name, device, x_base,
+                                          feature_dtype)
                 ones[name] = one_process_step(method, x_base, y_base)
             else:
-                method = build_zoo_method(name, device, x[0])
+                method = build_zoo_method(name, device, x[0], feature_dtype)
                 ones[name] = one_process_step(method, x, parts=2)
-                whole = build_zoo_method(name, device, x[0])
+                whole = build_zoo_method(name, device, x[0], feature_dtype)
                 whole.load_state_dict(ones[name]["state"])
                 wholes[name] = one_process_step(whole, x)
                 evals[name] = whole
@@ -1982,7 +2089,7 @@ def check_zoo_two_ranks_one_card(device, card: str) -> None:
             torch.save({"states": {k: v["state"] for k, v in ones.items()},
                         "x": x, "x_base": x_base, "y_base": y_base}, inputs)
             wall = run_ranks_on_card(_zoo_ranks, 2, inputs, out,
-                                     device.type)
+                                     device.type, feature_dtype, cudnn)
             two = torch.load(out, weights_only=True)
         failed = []
         for name, got in two.items():
@@ -1995,18 +2102,19 @@ def check_zoo_two_ranks_one_card(device, card: str) -> None:
                 if not (got["accs"].shape == want.shape and float(
                         (got["accs"] - want).abs().max()) <= ZOO_ACC_LIMIT):
                     failed.append(f"{name} eval")
-                w_loss, w_grad, _, _ = sharded_agreement(got, wholes[name],
-                                                         lrs[name])
+                w_loss, w_grad, w_worst, _ = sharded_agreement(
+                    got, wholes[name], lrs[name])
                 extra = (f"; sharded eval of the {ZOO_PARALLEL_B} episodes "
                          f"{got['accs'].tolist()} against one process's "
                          f"{want.tolist()} on those weights; against the "
                          f"whole batch in one process (unchecked): loss "
-                         f"{w_loss:.3e}, gradient {w_grad:.3e} of its norm")
+                         f"{w_loss:.3e}, gradient {w_grad:.3e} of its norm "
+                         f"(furthest off: {w_worst})")
             reference = ("the one-process step on the ranks' parts"
                          if name != "baseline" else
                          "the one-process step on the 16")
-            print(f"episode parallel (e), {name}, 2 ranks on one card over "
-                  f"gloo: loss {got['loss']!r} against {reference} "
+            print(f"episode parallel {label}, {name}, 2 ranks on one card "
+                  f"over gloo: loss {got['loss']!r} against {reference} "
                   f"{ones[name]['loss']!r} (relative {loss_rel:.3e}), "
                   f"averaged gradient {grad_rel:.3e} of its norm away "
                   f"(furthest off: {worst}), weights after the step within "
@@ -2020,11 +2128,134 @@ def check_zoo_two_ranks_one_card(device, card: str) -> None:
                 failed.append(f"{name} ranks' weights")
     finally:
         torch.backends.cudnn.deterministic = deterministic
-    print(f"episode parallel (e): the zoo's sharded steps in one spawn, "
-          f"{wall:.1f} s with the ranks' start [{card}]", flush=True)
+        torch.backends.cudnn.enabled = enabled
+    print(f"episode parallel {label}: the zoo's sharded steps in one "
+          f"spawn, {wall:.1f} s with the ranks' start [{card}]", flush=True)
     if failed or set(two) != set(ones):
         raise AssertionError(f"the zoo's sharded steps disagree with one "
                              f"process: {failed}")
+
+
+TP_ZOO = ("maml", "matchingnet")
+LSTM_WEIGHTS = ("G_encoder.weight_ih_l0", "G_encoder.weight_hh_l0",
+                "G_encoder.weight_ih_l0_reverse",
+                "G_encoder.weight_hh_l0_reverse", "FCE.lstmcell.weight_ih",
+                "FCE.lstmcell.weight_hh")
+
+
+def _tp_zoo_ranks(rank: int, n: int, port: int, inputs: str, out: str,
+                  device_type: str) -> None:
+    """Rank `rank` of dp=2 x tp=2 on the one card over gloo, f32 trunks,
+    cuDNN deterministic: for second-order MAML and MatchingNet, the
+    weights loaded, the parameters that tensor_sharding_rules(min_size=
+    1 << 10) picks stored as this rank's tp chunks (MatchingNet's six LSTM
+    weights among them), one tensor-parallel step on the dp group's
+    episodes. Rank 0 saves each method's loss, gradients (chunks
+    gathered), gathered weights, their largest difference between the
+    ranks, and each rank's sharded names and bytes."""
+    import torch.distributed as dist
+
+    from deep_kernel_transfer_tpu_torch.parallel import (
+        gather_state, grid_mesh, make_sharded_train_step,
+        shard_episode_batch, tensor_sharding_rules)
+    from deep_kernel_transfer_tpu_torch.parallel.mesh import tp_chunks
+
+    device = _join_card_group(rank, n, port, device_type)
+    torch.backends.cudnn.deterministic = True
+    try:
+        blob = torch.load(inputs, map_location=device, weights_only=True)
+        mesh = grid_mesh(2, 2, device)
+        results = {}
+        for name, state in blob["states"].items():
+            method = build_zoo_method(name, device, blob["x"][0], "float32")
+            method.load_state_dict(state)
+            rules = tensor_sharding_rules(method, mesh, min_size=1 << 10)
+            replicated = sum(3 * p.numel() * p.element_size()
+                             for k, p in method.named_parameters()
+                             if rules[k] is not None)
+            m = make_sharded_train_step(method, mesh, param_shardings=rules)(
+                shard_episode_batch(blob["x"], mesh))
+            grads, local, distinct = tp_gradients_and_bytes(method, mesh)
+            state = {k: v.to("cpu", copy=True)
+                     for k, v in gather_state(method).items()}
+            facts = {"local": local, "replicated": replicated,
+                     "distinct": all(distinct) and bool(distinct),
+                     "sharded": sorted(tp_chunks(method))}
+            everyone = [None] * n
+            dist.all_gather_object(everyone, facts)
+            results[name] = {"loss": float(m["loss"]), "grads": grads,
+                             "state": state, "ranks": everyone,
+                             "spread": _weights_spread(state)}
+            del method
+        if rank == 0:
+            torch.save(results, out)
+    finally:
+        dist.destroy_process_group()
+
+
+def check_tensor_parallel_zoo_one_card(device, card: str) -> None:
+    """(f): second-order MAML and MatchingNet on four gloo ranks of the one
+    card, dp=2 x tp=2 (two episodes a dp group), f32 trunks, cuDNN
+    deterministic, each against the same step in one process on the dp
+    groups' parts (one_process_step(parts=2)) at (e)'s bounds: MAML
+    differentiates through its inner gradient, and MatchingNet's LSTM
+    weights are tp chunks. Prints the bytes a rank holds of the sharded
+    weights with Adam's moments against the replicated bytes."""
+    x, _, _ = zoo_episodes(device)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        ones, lrs = {}, {}
+        for name in TP_ZOO:
+            method = build_zoo_method(name, device, x[0], "float32")
+            ones[name] = one_process_step(method, x, parts=2)
+            lrs[name] = {k: method.lr for k, _ in method.named_parameters()}
+            del method
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as d:
+            inputs, out = (os.path.join(d, "in.pt"),
+                           os.path.join(d, "out.pt"))
+            torch.save({"states": {k: v["state"] for k, v in ones.items()},
+                        "x": x}, inputs)
+            wall = run_ranks_on_card(_tp_zoo_ranks, 4, inputs, out,
+                                     device.type)
+            tp = torch.load(out, weights_only=True)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    failed = []
+    for name, got in tp.items():
+        agreement = sharded_agreement(got, ones[name], lrs[name])
+        loss_rel, grad_rel, worst, step_dev = agreement
+        ranks = got["ranks"]
+        lstm = [k for k in LSTM_WEIGHTS if k in ranks[0]["sharded"]]
+        print(f"tensor parallel (f), {name}, dp=2 x tp=2, 4 ranks on one "
+              f"card over gloo, f32 trunk: {len(ranks[0]['sharded'])} "
+              f"weights sharded ({len(lstm)} of them LSTM weights): loss "
+              f"{got['loss']!r} against the one-process step on the dp "
+              f"groups' parts {ones[name]['loss']!r} (relative "
+              f"{loss_rel:.3e}), gradient {grad_rel:.3e} of its norm away "
+              f"(furthest off: {worst}), weights after the step within "
+              f"{step_dev:.3e} x 2 lr, gathered weights apart between the "
+              f"ranks by at most {got['spread']!r}; sharded weights with "
+              f"Adam's moments {[r['local'] for r in ranks]} bytes a rank "
+              f"against {ranks[0]['replicated']} replicated [{card}]",
+              flush=True)
+        try:
+            check_sharded_agreement(name, agreement)
+        except AssertionError:
+            failed.append(name)
+        if got["spread"] != 0.0:
+            failed.append(f"{name} ranks' weights")
+        if not all(r["local"] * 2 == r["replicated"] and r["distinct"]
+                   and r["sharded"] == ranks[0]["sharded"] for r in ranks):
+            failed.append(f"{name} storage")
+        if name == "matchingnet" and len(lstm) != len(LSTM_WEIGHTS):
+            failed.append("matchingnet's LSTM weights")
+    print(f"tensor parallel (f): both methods in one spawn, {wall:.1f} s "
+          f"with the ranks' start [{card}]", flush=True)
+    if failed or set(tp) != set(TP_ZOO):
+        raise AssertionError(f"the tensor-parallel zoo steps disagree with "
+                             f"one process: {failed}")
 
 
 def drive_parallel_path(device, card: str) -> dict:
@@ -2044,6 +2275,8 @@ def drive_parallel_path(device, card: str) -> dict:
         weights stored as tp chunks (check_tensor_parallel_one_card);
     (e) the comparison methods and BaselineTrain on two gloo ranks
         (check_zoo_two_ranks_one_card);
+    (f) second-order MAML and MatchingNet on four gloo ranks, dp=2 x
+        tp=2 (check_tensor_parallel_zoo_one_card);
     then StepTimer and trace around two train steps."""
     import torch.distributed as dist
 
@@ -2134,10 +2367,11 @@ def drive_parallel_path(device, card: str) -> dict:
             os.chdir(cwd)
             dd._CACHE.clear()
 
-    # (d) and (e)
+    # (d), (e) and (f)
     torch.cuda.empty_cache()
     launches += check_tensor_parallel_one_card(device, card, batches[0])
     check_zoo_two_ranks_one_card(device, card)
+    check_tensor_parallel_zoo_one_card(device, card)
 
     # the profiling helpers around two train steps
     timer = StepTimer()
@@ -2389,9 +2623,10 @@ def drive_regression_path(device, card: str) -> None:
 
 def drive_sines_path(device, card: str) -> None:
     """The sines scripts through `main`, cut in depth: train_DKT (MLP2,
-    spectral 4 x 40) for 1000 iterations with the 500-task eval, train_FT
-    for 1000 iterations with a 50-task eval (100 finetune steps a task),
-    train_MAML for 200 meta-steps with a 50-task eval. Prints ms a step
+    spectral 4 x 40) for 500 iterations with a 250-task eval, train_FT
+    for 500 iterations with a 50-task eval (100 finetune steps a task),
+    train_MAML for 100 meta-steps with a 50-task eval (half the depth of
+    PRs 8-10, to keep the script near half its time limit). Prints ms a step
     (host clock between steps, each of which synchronises) and the MSEs;
     no kernel of the port may launch."""
     from deep_kernel_transfer_tpu_torch.methods import (DKTRegression,
@@ -2401,11 +2636,11 @@ def drive_sines_path(device, card: str) -> None:
     counters = kernel_counters()
     for c in counters:
         c.launches = 0
-    runs = {"train_DKT": (train_DKT, ["--iterations=1000",
-                                      "--n_test_tasks=500"]),
-            "train_FT": (train_FT, ["--iterations=1000",
+    runs = {"train_DKT": (train_DKT, ["--iterations=500",
+                                      "--n_test_tasks=250"]),
+            "train_FT": (train_FT, ["--iterations=500",
                                     "--n_test_tasks=50"]),
-            "train_MAML": (train_MAML, ["--iterations=200",
+            "train_MAML": (train_MAML, ["--iterations=100",
                                         "--n_test_tasks=50"])}
     log: list = []
     restore = recording_steps([(DKTRegression, "train_step"),
@@ -2495,6 +2730,8 @@ def main() -> int:
         for name, count in path().items():
             launches[name] = launches.get(name, 0) + count
     drive_woodbury_path(device, card)
+    torch.cuda.empty_cache()
+    drive_woodbury_cli_path(device, card)
     torch.cuda.empty_cache()
     drive_zoo_path(device, card)
     torch.cuda.empty_cache()

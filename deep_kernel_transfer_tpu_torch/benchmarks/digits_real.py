@@ -4,10 +4,10 @@ digits through the port's CLIs.
     python -m deep_kernel_transfer_tpu_torch.benchmarks.digits_real \\
         --shots=5 --repeat=3 --dkt_variants --ece
 
-Port of the DKT path of benchmarks/digits_real.py and of the DKT rows of
-benchmarks/calibration.py, with no scikit-learn: the 1797 8x8 digits
-(values 0..16) and their labels are read from `digits.npz` beside this
-file, written once from `sklearn.datasets.load_digits`.
+Port of benchmarks/digits_real.py and of benchmarks/calibration.py, with
+no scikit-learn: the 1797 8x8 digits (values 0..16) and their labels are
+read from `digits.npz` beside this file, written once from
+`sklearn.datasets.load_digits`.
 
   * Default (digits_real): 28-px bicubic JPEGs of the digits; base = val =
     digits 0-4, novel = digits 5-9.
@@ -23,12 +23,14 @@ MAML at maml_budget_epochs, the baselines with --num_classes=4112 and
 trained once for all shots), writes the feature cache with save_features
 for the methods that test from it, then tests with --repeat reseeded runs
 of 600 episodes. For DKT, --dkt_variants adds the --laplace and
---adaptation heads on the same checkpoint, --ece the calibration study
-(test_uncertainty at --episode_batch=32, as benchmarks/calibration.py
-runs it). Rows carry the JAX package's key names (benchmarks/report.json),
-with each run's wall time, and go to --report (digits_report.json beside
-this file by default) with the card's name and power limit, merged after
-every row; --skip_existing skips a (method, shot) whose accuracy row the
+--adaptation heads on the same checkpoint. --ece adds each method's
+calibration study (test_uncertainty at --episode_batch=32, as
+benchmarks/calibration.py runs it: from images for DKT and MAML, from the
+feature cache for the rest), rows {tag}_ece_{method}_{shot}shot_*.
+Rows carry the JAX package's key names (benchmarks/report.json), with
+each run's wall time, and go to --report (digits_report.json beside this
+file by default) with the card's name and power limit, merged after every
+row; --skip_existing skips a (method, shot) whose accuracy row the
 report already holds, so one method can run per call. Runs on CUDA;
 `main(argv, device="cpu")` runs on the CPU.
 """
@@ -201,7 +203,7 @@ def main(argv=None, device=None) -> dict:
     ap.add_argument("--dkt_variants", action="store_true",
                     help="also test DKT's --laplace and --adaptation heads")
     ap.add_argument("--ece", action="store_true",
-                    help="also run DKT's calibration study")
+                    help="also run each method's calibration study")
     ap.add_argument("--skip_existing", action="store_true",
                     help="skip a method and shot whose accuracy row is "
                          "already in the report")
@@ -294,8 +296,8 @@ def _run_method(method, shot, key, tag, args, device, card, trained, record,
         row = {}
         print(f"== {head_key}: {acc:.2f}% +- {ci:.2f}% (seed std "
               f"{np.std(runs):.2f}) [{card}]", flush=True)
-    if method == "DKT" and args.ece:
-        ece_key = f"{tag}_ece_dkt_{shot}shot"
+    if args.ece:
+        ece_key = f"{tag}_ece_{method.lower()}_{shot}shot"
         t0 = time.perf_counter()
         out = test_uncertainty.main(
             common + [f"--repeat={args.repeat}", f"--n_iter={args.n_iter}",

@@ -20,10 +20,11 @@ CPU, processes over gloo) and the collectives are written out:
     dp group before the update (the local batches are of equal size, so
     the mean of the ranks' means is the global mean: the JAX psum). With
     `param_shardings` (from `tensor_sharding_rules`) each rank stores only
-    its tp chunk of the large weights, and Adam's moments of them are
-    chunk-sized too; the forward all-gathers the chunks over the tp group.
-    The tp ranks of one dp group take the same episodes and compute the
-    same full gradient, so a chunk's gradient is its slice of it;
+    its tp chunk of the large weights between steps, and Adam's moments
+    of them are chunk-sized too; a step all-gathers the chunks over the tp
+    group into whole weights, outside autograd, and runs on those. The tp
+    ranks of one dp group take the same episodes and compute the same
+    full gradient, so a chunk's gradient is its slice of it;
   * `make_sharded_eval` gathers the dp groups' per-episode accuracies.
 
 The backend is NCCL on the card and gloo on the CPU. Only broadcast,
@@ -33,6 +34,7 @@ starts no process group.
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import multiprocessing
 import os
@@ -43,7 +45,6 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 import torch.distributed as dist
-from torch.nn.utils import parametrize
 
 from .._device import resolve_device
 
@@ -372,9 +373,14 @@ def make_sharded_train_step(method, mesh: Mesh, param_shardings=None):
     batch-sharded pretrain step).
 
     `param_shardings` (tensor_sharding_rules on a 2-D mesh) shards the
-    method's parameters over tp in place, once, here (shard_parameters):
-    the method then all-gathers them in each forward. Without it the
-    method stays replicated."""
+    method's parameters over tp in place, once, here (shard_parameters).
+    Each step then all-gathers them whole, outside autograd, and runs the
+    body on the whole tensors, so every method's gradients are the 1-D
+    step's, second-order MAML's included; the hook cuts the reduced
+    gradients and the weights back to this rank's chunks before the
+    update, so Adam's moments stay chunk-sized. The tp ranks of a dp
+    group take the same episodes and compute the same full gradient.
+    Without it the method stays replicated."""
     from ..methods.baseline import BaselineTrain
 
     if param_shardings is not None:
@@ -383,16 +389,20 @@ def make_sharded_train_step(method, mesh: Mesh, param_shardings=None):
 
     def reduce(ts):
         _reduce_over_dp(ts, mesh, mean)
+        _cut(method)
 
     if isinstance(method, BaselineTrain):
         def batch_step(x_local: torch.Tensor, y_local: torch.Tensor) -> dict:
-            return method.train_step(x_local, y_local, average=reduce,
-                                     batch_sum=lambda t: dp_sum(t, mesh))
+            with _whole_parameters(method):
+                return method.train_step(
+                    x_local, y_local, average=reduce,
+                    batch_sum=lambda t: dp_sum(t, mesh))
 
         return batch_step
 
     def step(xb_local: torch.Tensor) -> dict:
-        return method.train_step(xb_local, average=reduce)
+        with _whole_parameters(method):
+            return method.train_step(xb_local, average=reduce)
 
     return step
 
@@ -428,33 +438,14 @@ def tensor_sharding_rules(module: torch.nn.Module, mesh: Mesh,
     return rules
 
 
-class _GatherChunks(torch.autograd.Function):
-    """A parameter's tp chunks all-gathered along `dim` into the full
-    tensor. The backward returns this rank's slice of the full gradient:
-    the tp ranks of a dp group compute the same one."""
-
-    @staticmethod
-    def forward(ctx, chunk: torch.Tensor, dim: int,
-                mesh: Mesh) -> torch.Tensor:
-        ctx.dim, ctx.mesh = dim, mesh
-        parts = [torch.empty_like(chunk) for _ in range(mesh.tp)]
-        dist.all_gather(parts, chunk.contiguous(), group=mesh.tp_group)
-        return torch.cat(parts, dim)
-
-    @staticmethod
-    def backward(ctx, grad: torch.Tensor):
-        mesh = ctx.mesh
-        part = grad.chunk(mesh.tp, ctx.dim)[mesh.tp_rank]
-        return part.clone(memory_format=torch.contiguous_format), None, None
-
-
-class TensorParallelChunk(torch.nn.Module):
-    """The parametrization of a tp-sharded parameter: the module stores
-    this rank's chunk along `dim` (right_inverse, at registration) and
-    reads the full tensor, all-gathered over the tp group (forward)."""
+class TensorParallelChunk:
+    """How one tp-sharded parameter is stored: between steps the Parameter
+    holds this rank's chunk along `dim` of its full shape; `gather`
+    all-gathers the tp group's chunks into the full tensor, `cut` takes
+    this rank's chunk of a full one. Neither is recorded by autograd: the
+    step runs on the full tensor as a leaf, as one process does."""
 
     def __init__(self, dim: int, mesh: Mesh, full_shape: torch.Size):
-        super().__init__()
         if mesh.tp_group is None:
             raise ValueError("tensor-parallel sharding needs a 2-D mesh "
                              "(make_mesh_2d)")
@@ -467,13 +458,17 @@ class TensorParallelChunk(torch.nn.Module):
         shape[dim] //= mesh.tp
         self.chunk_shape = tuple(shape)
 
-    def forward(self, chunk: torch.Tensor) -> torch.Tensor:
+    @torch.no_grad()
+    def gather(self, chunk: torch.Tensor) -> torch.Tensor:
         if tuple(chunk.shape) != self.chunk_shape:
             raise ValueError(f"a tp chunk of shape {tuple(chunk.shape)}, "
                              f"want {self.chunk_shape}")
-        return _GatherChunks.apply(chunk, self.dim, self.mesh)
+        parts = [torch.empty_like(chunk) for _ in range(self.mesh.tp)]
+        dist.all_gather(parts, chunk.contiguous(), group=self.mesh.tp_group)
+        return torch.cat(parts, self.dim)
 
-    def right_inverse(self, full: torch.Tensor) -> torch.Tensor:
+    @torch.no_grad()
+    def cut(self, full: torch.Tensor) -> torch.Tensor:
         if tuple(full.shape) != self.full_shape:
             raise ValueError(f"a parameter of shape {tuple(full.shape)}, "
                              f"want {self.full_shape}")
@@ -481,19 +476,68 @@ class TensorParallelChunk(torch.nn.Module):
         return part.clone(memory_format=torch.contiguous_format)
 
 
+def tp_chunks(method) -> dict:
+    """name -> TensorParallelChunk of each parameter of `method` that
+    shard_parameters stores as a tp chunk; empty for a replicated one."""
+    return getattr(method, "_tp_chunks", {})
+
+
+def _whole(method) -> None:
+    """Each tp-sharded parameter's .data made the full tensor, one
+    all_gather a parameter over the tp group. An LSTM holding one is
+    repacked for cuDNN (a no-op on the CPU)."""
+    params = dict(method.named_parameters())
+    for name, chunk in tp_chunks(method).items():
+        params[name].data = chunk.gather(params[name].data)
+    for name in {n.rpartition(".")[0] for n in tp_chunks(method)}:
+        module = method.get_submodule(name)
+        if isinstance(module, torch.nn.RNNBase):
+            module.flatten_parameters()
+
+
+def _cut(method) -> None:
+    """Each tp-sharded parameter that is whole, and its gradient, cut back
+    to this rank's chunk."""
+    params = dict(method.named_parameters())
+    for name, chunk in tp_chunks(method).items():
+        p = params[name]
+        if tuple(p.shape) == chunk.full_shape:
+            p.data = chunk.cut(p.data)
+        if p.grad is not None and tuple(p.grad.shape) == chunk.full_shape:
+            p.grad = chunk.cut(p.grad)
+
+
+@contextlib.contextmanager
+def _whole_parameters(method):
+    """The tp-sharded parameters of `method` whole inside the block and
+    this rank's chunks after it (a collective: every rank of the tp group
+    enters). Nothing to do for a replicated method."""
+    if not tp_chunks(method):
+        yield
+        return
+    _whole(method)
+    try:
+        yield
+    finally:
+        _cut(method)
+
+
 @torch.no_grad()
 def shard_parameters(method, mesh: Mesh, param_shardings: dict) -> None:
     """Store each parameter that `param_shardings` shards as this rank's
-    tp chunk (TensorParallelChunk), in place: the same Parameter object,
-    so the optimizer's groups and learning rates stay; Adam moments it
-    already holds are cut to the chunk too. The JAX step's
-    with_sharding_constraint on the params (mesh.py:102-104)."""
+    tp chunk along its dim (a TensorParallelChunk in tp_chunks(method)),
+    in place: the same Parameter object, so the optimizer's groups and
+    learning rates stay; Adam moments it already holds are cut to the
+    chunk too. The sharded step makes the parameters whole while it runs
+    (_whole_parameters). The JAX step's with_sharding_constraint on the
+    params (mesh.py:102-104)."""
     params = dict(method.named_parameters())
     unknown = set(param_shardings) - set(params)
     if unknown:
         raise ValueError(f"param_shardings names no parameter of the "
                          f"method: {sorted(unknown)}")
     state = method.optimizer.state if method.optimizer is not None else {}
+    chunks = dict(tp_chunks(method))
     for name, rule in param_shardings.items():
         if rule is None:
             continue
@@ -502,37 +546,23 @@ def shard_parameters(method, mesh: Mesh, param_shardings: dict) -> None:
             raise ValueError(f"{name}: parameters shard over "
                              f"{MODEL_AXIS!r}, not {axis!r}")
         p = params[name]
-        full = p.shape
-        owner, _, leaf = name.rpartition(".")
-        module = method.get_submodule(owner)
-        if isinstance(module, torch.nn.RNNBase):
-            raise ValueError(f"{name}: nn.LSTM reads its flat weight list, "
-                             f"not the attribute; it cannot hold a tp chunk")
-        parametrize.register_parametrization(
-            module, leaf,
-            TensorParallelChunk(dim, mesh, full), unsafe=True)
+        chunk = TensorParallelChunk(dim, mesh, p.shape)
         for key, v in state.get(p, {}).items():
-            if torch.is_tensor(v) and v.shape == full:
-                state[p][key] = v.chunk(mesh.tp, dim)[mesh.tp_rank].clone(
-                    memory_format=torch.contiguous_format)
+            if torch.is_tensor(v) and tuple(v.shape) == chunk.full_shape:
+                state[p][key] = chunk.cut(v)
+        p.data = chunk.cut(p.data)
+        chunks[name] = chunk
+    method._tp_chunks = chunks
 
 
 @torch.no_grad()
 def gather_state(method) -> dict:
     """The method's state_dict as a replicated run holds it: each
-    tp-sharded parameter all-gathered under its own name. A collective:
-    every rank calls it (rank 0 then saves, say with
+    tp-sharded parameter all-gathered. A collective: every rank calls it
+    (rank 0 then saves, say with
     utils/checkpoint.py::save_checkpoint(..., state=...))."""
-    out = {}
-    for name, value in method.state_dict().items():
-        owner, sep, rest = name.partition(".parametrizations.")
-        if not sep:
-            out[name] = value
-            continue
-        leaf = rest.removesuffix(".original")
-        out[f"{owner}.{leaf}"] = getattr(method.get_submodule(owner),
-                                         leaf).detach()
-    return out
+    with _whole_parameters(method):
+        return dict(method.state_dict())
 
 
 def make_sharded_eval(method, mesh: Mesh):
@@ -542,7 +572,8 @@ def make_sharded_eval(method, mesh: Mesh):
     an all_reduce over the dp group of the rank's block into zeros, which
     is exact."""
     def eval_fn(xb_local: torch.Tensor) -> torch.Tensor:
-        acc = method.batch_correct(xb_local).to(mesh.device)
+        with _whole_parameters(method):
+            acc = method.batch_correct(xb_local).to(mesh.device)
         b = acc.shape[0]
         out = torch.zeros(mesh.shape[DATA_AXIS] * b, dtype=acc.dtype,
                           device=mesh.device)

@@ -191,3 +191,40 @@ def test_jax_test_reads_the_port_checkpoint(dataset_cwd, method):
     adapted = ttest.main(args + ["--repeat=1", "--n_iter=2", "--adaptation"],
                          device="cpu")[0]
     assert 0.0 <= adapted <= 100.0
+
+
+def test_digits_runner_ece_takes_a_comparator(dataset_cwd, tmp_path):
+    """The digits runner's --ece runs the calibration study for a method
+    other than DKT: protonet trained (one epoch of 10 episodes), its
+    features cached and tested on this module's image set (5-way 5-shot),
+    then test_uncertainty from the
+    cache, with the rows under the JAX key names of
+    benchmarks/calibration.py; the JAX test_uncertainty.py on the port's
+    checkpoint and cache gives the same ECEs."""
+    import argparse
+
+    import test_uncertainty as junc
+
+    from deep_kernel_transfer_tpu_torch.benchmarks import digits_real as tdr
+
+    args = argparse.Namespace(epochs=1, repeat=1, n_iter=10,
+                              dkt_variants=False, ece=True)
+    short_train = argparse.Namespace(main=lambda argv, device: ttrain.main(
+        argv + ["--n_train_episodes=10"], device=device))
+    rows: dict = {}
+    tdr._run_method("protonet", 5, "digits_real_protonet_5way_5shot",
+                    "digits_real", args, "cpu", "cpu", set(), rows.update,
+                    short_train, tsave, ttest, tunc)
+    key = "digits_real_ece_protonet_5shot"
+    names = ("raw", "raw_std", "cal", "cal_std", "temp", "acc")
+    assert {f"{key}_{n}" for n in names} <= set(rows)
+    assert 0.0 <= rows[f"{key}_raw"] <= 1.0 and rows[f"{key}_temp"] > 0
+    assert "digits_real_protonet_5way_5shot_acc" in rows
+    assert os.path.isfile("save/features/omniglot/"
+                          "Conv4S_protonet_5way_5shot/novel.hdf5")
+    want = junc.main(["--dataset=omniglot", "--model=Conv4",
+                      "--train_n_way=5", "--test_n_way=5", "--n_shot=5",
+                      "--seed=1", "--method=protonet", "--repeat=1",
+                      "--n_iter=10", "--episode_batch=32"])
+    for k, n in (("ece_raw", "raw"), ("ece_cal", "cal"), ("acc", "acc")):
+        assert abs(rows[f"{key}_{n}"] - want[k]) < 1e-3, k

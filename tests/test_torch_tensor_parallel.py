@@ -15,16 +15,19 @@ parallel.spawn_ranks, torch held to one thread (OMP_NUM_THREADS=1).
       make_sharded_train_step(param_shardings=...) on make_mesh_2d(2, 2)
       of the virtual CPU devices (the JAX test's own tolerance,
       tests/test_parallel.py:133); each rank's sharded parameters and
-      Adam moments 1/tp of the full ones;
+      Adam moments 1/tp of the full ones; and on the same four ranks the
+      zoo's tensor-parallel steps (protonet, matchingnet with its six
+      LSTM weights as tp chunks, relationnet, second-order maml and
+      maml_approx, min_size 1 << 10) bit-equal to their 1-D dp=2 steps;
   (c) the 2-D mesh's episode functions: the tp ranks of one dp group get
       the same rows and the dp groups together the one-process batch
       (shard_episode_batch, make_sharded_eval, DeviceDataset.shard);
       wrap_pad_episodes pads to the dp extent;
   (d) refusals: a world that is not dp*tp, a missing tp group, a chunk of
       the wrong shape;
-  and the zoo: protonet, matchingnet, relationnet and maml (n_task = B =
-  4, two episodes a rank) and BaselineTrain's batch-sharded step on two
-  ranks, against one process and (the four families) the JAX sharded
+  and the zoo: protonet, matchingnet, relationnet, maml and maml_approx
+  (n_task = B = 4, two episodes a rank) and BaselineTrain's batch-sharded
+  step on two ranks, against one process and (the five) the JAX sharded
   gradient on the same weights, with tests/test_torch_methods_zoo.py's
   converters and tolerances: losses 1e-5 of the larger of 1 and the
   value, gradients 2e-2 of each tensor's largest entry (a conv bias
@@ -58,7 +61,7 @@ from deep_kernel_transfer_tpu_torch.parallel import (
     shard_episode_batch, spawn_ranks, tensor_sharding_rules,
     wrap_pad_episodes)
 from deep_kernel_transfer_tpu_torch.parallel.mesh import (
-    TensorParallelChunk, shard_parameters)
+    TensorParallelChunk, shard_parameters, tp_chunks)
 from deep_kernel_transfer_tpu_torch.utils.checkpoint import save_checkpoint
 from deep_kernel_transfer_tpu_torch.utils.convert import (
     backbone_state_from_jax, dkt_params_from_jax, state_from_jax)
@@ -69,7 +72,11 @@ from test_torch_methods_zoo import (PX as ZOO_PX, QUERY as ZOO_QUERY,
 
 B, WAY, SHOT, QUERY, PX = 8, 3, 2, 3, 16
 ZOO_B = 4  # two episodes a rank; MAML's n_task
-ZOO = ("protonet", "matchingnet", "relationnet", "maml")
+ZOO = ("protonet", "matchingnet", "relationnet", "maml", "maml_approx")
+LSTM_WEIGHTS = ("G_encoder.weight_ih_l0", "G_encoder.weight_hh_l0",
+                "G_encoder.weight_ih_l0_reverse",
+                "G_encoder.weight_hh_l0_reverse", "FCE.lstmcell.weight_ih",
+                "FCE.lstmcell.weight_hh")
 CPU = torch.device("cpu")
 
 
@@ -93,26 +100,26 @@ def _episodes(shape, seed=0):
         np.uint8)
 
 
-def _full_name(name: str) -> str:
-    """A parametrized parameter's own name."""
-    return name.replace(".parametrizations.", ".").removesuffix(".original")
-
-
 def _full_grads(model, mesh) -> dict:
     """Every parameter's gradient, a tp chunk's all-gathered over the tp
-    group, under the parameter's own name."""
-    out = {}
+    group."""
+    out, chunks = {}, tp_chunks(model)
     for name, p in model.named_parameters():
         g = p.grad
-        owner, sep, rest = name.partition(".parametrizations.")
-        if sep:
-            chunk = model.get_submodule(owner).parametrizations[
-                rest.removesuffix(".original")][0]
-            parts = [torch.empty_like(g) for _ in range(mesh.tp)]
-            dist.all_gather(parts, g.contiguous(), group=mesh.tp_group)
-            g = torch.cat(parts, chunk.dim)
-        out[_full_name(name)] = g.clone()
+        if name in chunks:
+            g = chunks[name].gather(g)
+        out[name] = g.clone()
     return out
+
+
+def _chunk_bytes(model) -> dict:
+    """Each tp-sharded parameter's bytes on this rank, with Adam's two
+    moments of it."""
+    params = dict(model.named_parameters())
+    return {n: sum(t.numel() * t.element_size() for t in (
+        params[n], model.optimizer.state[params[n]]["exp_avg"],
+        model.optimizer.state[params[n]]["exp_avg_sq"]))
+        for n in tp_chunks(model)}
 
 
 def _gathered(obj, mesh):
@@ -162,12 +169,13 @@ def _dp_ranks(x, state, zoo, base, ckpt):
     return out
 
 
-def _tp_ranks(x, state, data_file, ckpt):
+def _tp_ranks(x, state, zoo, data_file, ckpt):
     """On each of 4 ranks of a dp=2 x tp=2 mesh: one tensor-parallel DKT
     step from `state`; the sharded parameters' local and full bytes; the
     gathered state, its largest difference between the ranks and rank 0's
-    checkpoint; the mesh's episode functions. Returns (on rank 0) what
-    each rank saw."""
+    checkpoint; the mesh's episode functions; each zoo family's
+    tensor-parallel step (min_size 1 << 10) with its sharded names and
+    bytes. Returns (on rank 0) what each rank saw."""
     torch.set_num_threads(1)
     mesh = make_mesh_2d(2, 2, "cpu")
     model = _dkt().init(torch.from_numpy(x[0]))
@@ -179,15 +187,9 @@ def _tp_ranks(x, state, data_file, ckpt):
             for n, p in model.named_parameters() if rules[n] is not None}
     step = make_sharded_train_step(model, mesh, param_shardings=rules)
     m = step(shard_episode_batch(x, mesh))
-    chunks = {_full_name(n): p.detach().clone()
-              for n, p in model.named_parameters()
-              if ".parametrizations." in n}
-    local = {n: sum(t.numel() * t.element_size() for t in (
-        chunks[n], model.optimizer.state[p]["exp_avg"],
-        model.optimizer.state[p]["exp_avg_sq"]))
-        for n, p in ((_full_name(n), p)
-                     for n, p in model.named_parameters()
-                     if ".parametrizations." in n)}
+    chunks = {n: p.detach().clone() for n, p in model.named_parameters()
+              if n in tp_chunks(model)}
+    local = _chunk_bytes(model)
     st = gather_state(model)
     flat = torch.cat([v.reshape(-1).float() for v in st.values()])
     ref = flat.clone()
@@ -208,7 +210,20 @@ def _tp_ranks(x, state, data_file, ckpt):
             "accs": make_sharded_eval(model, mesh)(
                 shard_episode_batch(x, mesh)),
             "padded": wrap_pad_episodes(x[:3], mesh)[0].shape[0],
-            "draws": draws}
+            "draws": draws, "zoo": {}}
+    for name, (params, xb) in zoo.items():
+        _, tm, px = _episodic_pair(name)
+        tm = _load(tm, params, px, xb[0])
+        rules = tensor_sharding_rules(tm, mesh, min_size=1 << 10)
+        full_bytes = {n: 3 * p.numel() * p.element_size()
+                      for n, p in tm.named_parameters()
+                      if rules[n] is not None}
+        m = make_sharded_train_step(tm, mesh, param_shardings=rules)(
+            shard_episode_batch(xb, mesh))
+        seen["zoo"][name] = {
+            "loss": float(m["loss"]), "grads": _full_grads(tm, mesh),
+            "state": gather_state(tm), "sharded": sorted(tp_chunks(tm)),
+            "local": _chunk_bytes(tm), "full": full_bytes}
     everyone = _gathered(seen, mesh)
     if mesh.rank == 0:
         return {"ranks": everyone, "state": st, "spread": float(spread)}
@@ -286,7 +301,7 @@ def runs(one_thread, tmp_path_factory):
         full_draws=full, zoo=zoo, base=base, root=root,
         dp=spawn_ranks(2, "cpu", _dp_ranks, x, state, zoo, base,
                        str(root / "dp.tar")),
-        tp=spawn_ranks(4, "cpu", _tp_ranks, x, state, data_file,
+        tp=spawn_ranks(4, "cpu", _tp_ranks, x, state, zoo, data_file,
                        str(root / "tp.tar")))
 
 
@@ -426,6 +441,40 @@ def test_tp_storage_is_a_tp_chunk(runs):
             assert torch.equal(chunk, ranks[b]["chunks"][name])
 
 
+@pytest.mark.parametrize("name", ZOO)
+def test_tp_zoo_step_bit_equal_to_the_1d_step(runs, name):
+    """Each comparator's tensor-parallel step (dp=2 x tp=2, min_size
+    1 << 10: the trunk's convs, MatchingNet's six LSTM weights) against
+    its 1-D dp=2 step on the same episodes: the loss, every gradient (a
+    chunk's gathered) and every weight after the step bit for bit, on
+    each of the four ranks. Second-order MAML differentiates through its
+    inner gradient, so a step that cut the weights' gradient to a rank's
+    slice inside autograd would get its outer gradient wrong."""
+    dp = runs["dp"][name]
+    for seen in runs["tp"]["ranks"]:
+        got = seen["zoo"][name]
+        assert got["sharded"], name  # at least one weight is a tp chunk
+        assert got["loss"] == dp["loss"]
+        assert set(got["grads"]) == set(dp["grads"])
+        for n, want in dp["grads"].items():
+            assert torch.equal(got["grads"][n], want), n
+        assert set(got["state"]) == set(dp["state"])
+        for n, want in dp["state"].items():
+            assert torch.equal(got["state"][n], want), n
+
+
+def test_tp_matchingnet_lstm_weights_are_tp_chunks(runs):
+    """MatchingNet's six LSTM weights (the G encoder's four, the FCE
+    cell's two) are stored as tp chunks, as the JAX rule shards them:
+    with Adam's moments, 1/tp of their replicated bytes on each rank."""
+    for seen in runs["tp"]["ranks"]:
+        got = seen["zoo"]["matchingnet"]
+        assert set(LSTM_WEIGHTS) <= set(got["sharded"])
+        assert set(got["local"]) == set(got["full"]) == set(got["sharded"])
+        for n in LSTM_WEIGHTS:
+            assert got["local"][n] * 2 == got["full"][n], n
+
+
 # -- (c) the 2-D mesh's episode functions ----------------------------------------
 
 def test_2d_mesh_layout_and_rows(runs):
@@ -519,12 +568,12 @@ def test_tp_sharding_refuses_without_a_tp_group_or_a_right_chunk():
     full = model.feature.trunk[1].C.weight.detach().clone()
     shard_parameters(model, fake, {name: (MODEL_AXIS, 0)})
     conv = model.feature.trunk[1].C
-    stored = conv.parametrizations.weight.original
+    stored = conv.weight
     assert stored.shape == (32, 64, 3, 3)
     assert torch.equal(stored, full[32:])  # tp coordinate 1
     stored.data = torch.zeros(16, 64, 3, 3)
     with pytest.raises(ValueError, match="a tp chunk of shape"):
-        conv.weight
+        gather_state(model)
 
 
 # -- the zoo on the episode-parallel path ------------------------------------------
