@@ -75,6 +75,14 @@
      MatchingNet on four gloo ranks, dp=2 x tp=2, f32, their conv and
      LSTM weights as tp chunks, against one process; then StepTimer and a
      torch.profiler trace (utils/profiling.py) around two train steps;
+   the study runners of deep_kernel_transfer_tpu_torch/benchmarks through
+   their `main` at full width and cut depth (drive_studies_path): the
+   step's segment profile at B = 32, ResNet10's at B = 8 with the knee at
+   8 and 16, the jitter-probe A/B, the matmul peak at bf16 N = 4096 and
+   8192 and f32 N = 4096, the train CLI's throughput with 2 added epochs,
+   and DKT's budget sweep at 1 and 5 shots with the linear kernel, 2
+   epochs a run: every segment finite and positive, the peaks under the
+   datasheet's rates, the fused MLL's launches counted;
    then the exact GP's Woodbury route against its dense route at N=4096,
    D=256: agreement, ms and peak memory of each; the Woodbury CLI
    workload at full width (250 glyph classes, DKT Conv4S bncossim, 20-way
@@ -2136,6 +2144,63 @@ def check_zoo_two_ranks_one_card(device, card: str,
                              f"process: {failed}")
 
 
+def check_zoo_split_in_float64(device) -> dict:
+    """ROADMAP C4's arbiter at part (e)'s shapes, in one process: each of
+    ZOO_PARALLEL's gradients on the whole batch of `zoo_episodes` against
+    the combination of its halves' (the mean; the sum for MAML), with the
+    parameters and trunk in float64 and in f32 (TF32 off). Prints, as
+    fractions of the float64 gradient's norm, the float64 split gap and
+    the f32 whole, f32 halves and f32 split gaps; raises unless the
+    float64 gap is under 1e-9. Not run by main()."""
+    from deep_kernel_transfer_tpu_torch.gp.kernels import full_f32
+    from deep_kernel_transfer_tpu_torch.models.backbones import (
+        preprocess_input)
+    from deep_kernel_transfer_tpu_torch.parallel.mesh import loss_reduction
+
+    x, _, _ = zoo_episodes(device)
+
+    def gradient(method, xx, parts):
+        total = None
+        for share in xx.chunk(parts):
+            method.zero_grad(set_to_none=True)
+            method.batch_loss_train(share)[0].backward()
+            g = torch.cat([p.grad.reshape(-1).double()
+                           for p in method.parameters()])
+            total = g if total is None else total + g
+        return total / parts if loss_reduction(method) == "mean" else total
+
+    def gap(a, b):
+        return float((a - b).norm() / b.norm())
+
+    gaps = {}
+    with full_f32():
+        for name in ZOO_PARALLEL:
+            g = {}
+            for dtype in (torch.float64, torch.float32):
+                method = build_zoo_method(name, device, x[0],
+                                          "float32").to(dtype)
+                xx = x
+                if name == "maml":  # its trunk takes its parameters' dtype
+                    xx = preprocess_input(x).to(dtype)
+                else:
+                    method.feature_dtype = dtype
+                for parts in (1, 2):
+                    g[dtype, parts] = gradient(method, xx, parts)
+            exact = g[torch.float64, 1]
+            gaps[name] = (gap(g[torch.float64, 2], exact),
+                          gap(g[torch.float32, 1], exact),
+                          gap(g[torch.float32, 2], exact),
+                          gap(g[torch.float32, 2], g[torch.float32, 1]))
+            print(f"C4 in float64, {name}: float64 whole vs halves "
+                  f"{gaps[name][0]:.3e}, float32 whole vs float64 "
+                  f"{gaps[name][1]:.3e}, float32 halves vs float64 "
+                  f"{gaps[name][2]:.3e}, float32 whole vs halves "
+                  f"{gaps[name][3]:.3e}", flush=True)
+    if not all(v[0] < 1e-9 for v in gaps.values()):
+        raise AssertionError(f"the split moves the float64 gradient: {gaps}")
+    return gaps
+
+
 TP_ZOO = ("maml", "matchingnet")
 LSTM_WEIGHTS = ("G_encoder.weight_ih_l0", "G_encoder.weight_hh_l0",
                 "G_encoder.weight_ih_l0_reverse",
@@ -2672,6 +2737,95 @@ def drive_sines_path(device, card: str) -> None:
         raise AssertionError(f"the sines path launched {launches}")
 
 
+# -- the study runners --------------------------------------------------------
+
+STUDY_REPS, STUDY_ROUNDS = 2, 2  # calls a timing, turns: the cut depth
+STUDY_KNEE = (8, 16)
+STUDY_CLI_EPOCHS, STUDY_SWEEP_EPOCHS = 2, 2
+PEAK_SIZES = {"bfloat16": (4096, 8192), "float32": (4096,)}
+
+
+def drive_studies_path(device, card: str) -> dict:
+    """The study runners of deep_kernel_transfer_tpu_torch/benchmarks at
+    full width and cut depth, each through its `main`, their rows in a
+    temporary report: profile_step at B = 32, profile_resnet at profile
+    batch 8 with the knee at 8 and 16, gp_probe_ab, peak_sweep at bf16
+    N = 4096 and 8192 and f32 N = 4096, train_cli_e2e with 2 added epochs
+    and dkt_sweep of the linear kernel, 2 epochs a run, 100 test episodes.
+    Checks every segment finite and positive, the peak readings under the
+    datasheet's rates and the fused MLL's launches, counted from 0: each
+    timed call of a loss or step segment and each train step of the CLI
+    runs launches it once. Returns the launches."""
+    from deep_kernel_transfer_tpu_torch.benchmarks import (
+        dkt_sweep, gp_probe_ab, peak_sweep, profile_resnet, profile_step,
+        train_cli_e2e)
+    from deep_kernel_transfer_tpu_torch.ops.fused_mll import fused_linear_mll
+
+    calls = STUDY_ROUNDS * (1 + STUDY_REPS)  # a timed fn: warm-up + reps
+    timing = [f"--reps={STUDY_REPS}", f"--rounds={STUDY_ROUNDS}"]
+    cli_batches = -(-train_cli_e2e.N_EPISODES // train_cli_e2e.EPISODE_BATCH)
+    digits_batches = 100  # --n_train_episodes' default at one episode a batch
+    runs = [
+        (profile_step, ["--batch=32"] + timing, 3 * calls),
+        (profile_resnet, ["--profile_batch=8", "--batches=" + ",".join(
+            map(str, STUDY_KNEE))] + timing, (3 + len(STUDY_KNEE)) * calls),
+        (gp_probe_ab, [], 0),
+        (peak_sweep, [f"--{flag}_sizes=" + ",".join(map(str, PEAK_SIZES[t]))
+                      for flag, t in (("bf16", "bfloat16"),
+                                      ("f32", "float32"))], 0),
+        (train_cli_e2e, [f"--epochs={STUDY_CLI_EPOCHS}"],
+         (3 + STUDY_CLI_EPOCHS) * cli_batches),
+        # the default bncossim run at 1 and 5 shots, then the linear kernel
+        (dkt_sweep, ["--kernels=linear", f"--epochs={STUDY_SWEEP_EPOCHS}",
+                     "--n_iter=100", "--repeat=1"],
+         3 * STUDY_SWEEP_EPOCHS * digits_batches)]
+    rows, wall = {}, {}
+    fused_linear_mll.launches = 0
+    with tempfile.TemporaryDirectory() as root:
+        report = os.path.join(root, "studies.json")
+        for runner, argv, launches in runs:
+            name = runner.__name__.split(".")[-1]
+            before = fused_linear_mll.launches
+            t0 = time.perf_counter()
+            rows.update(runner.main(argv + [f"--report={report}"]))
+            torch.cuda.synchronize()
+            wall[name] = time.perf_counter() - t0
+            launched = fused_linear_mll.launches - before
+            print(f"studies phase: {name} {' '.join(argv)}: {wall[name]:.1f} "
+                  f"s, fused_linear_mll launches {launched} (want "
+                  f"{launches}) [{card}]", flush=True)
+            if launched != launches:
+                raise AssertionError(f"{name} launched the fused MLL "
+                                     f"{launched} times, want {launches}")
+            torch.cuda.empty_cache()
+    segments = {k: v for k, v in rows.items() if k.endswith("_ms")
+                and ("_profile_b" in k or k.startswith(("profile_b",
+                                                        "gp_probe_ab_tail")))
+                and not k.endswith(("gp_share_ms", "opt_overhead_ms"))}
+    bad = {k: v for k, v in segments.items()
+           if not (math.isfinite(v) and v > 0)}
+    if len(segments) != 2 * 6 + 2 or bad:
+        raise AssertionError(f"segments not finite and positive: {bad} of "
+                             f"{sorted(segments)}")
+    for dtype, sizes in PEAK_SIZES.items():
+        for n in sizes:
+            rate = rows[f"gpu_peak_{dtype}_{n}_tflops"]
+            if not 0 < rate <= peak_sweep.DATASHEET_TFLOPS[dtype]:
+                raise AssertionError(f"{dtype} N={n}: {rate} TFLOP/s")
+    knee = [rows[f"resnet10_{profile_resnet.HW}_knee_b{b}_eps_per_sec"]
+            for b in STUDY_KNEE]
+    if not all(isinstance(v, float) and v > 0 for v in knee):
+        raise AssertionError(f"the knee: {knee}")
+    acc = [v for k, v in rows.items() if k.startswith("digits_real_dkt_")
+           and k.endswith("_acc")]
+    if len(acc) < 5 or not all(35.0 < v <= 100.0 for v in acc):
+        raise AssertionError(f"the sweep's accuracies: {acc}")
+    total = fused_linear_mll.launches
+    print(f"studies phase: {sum(wall.values()):.1f} s in all, fused_linear_mll"
+          f" launches {total} [{card}]", flush=True)
+    return {"fused_linear_mll": total}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2717,14 +2871,16 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 5. the main paths: DKT meta-training, the GP memory regime, the CLIs,
-    # the test-time heads on the digits; then the exact GP's Woodbury route.
+    # the test-time heads on the digits, ResNet10, the parallel paths and
+    # the study runners; then the exact GP's Woodbury route.
     # A kernel's launches are summed over the paths, each counted from 0.
     launches, step_ms = drive_main_path(device, card)
     paths = [lambda: drive_gp_memory_path(device),
              lambda: drive_cli_path(device, card, step_ms),
              lambda: drive_heads_path(device, card),
              lambda: drive_resnet_path(device, card),
-             lambda: drive_parallel_path(device, card)]
+             lambda: drive_parallel_path(device, card),
+             lambda: drive_studies_path(device, card)]
     for path in paths:
         torch.cuda.empty_cache()
         for name, count in path().items():

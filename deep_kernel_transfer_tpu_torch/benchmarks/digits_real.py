@@ -45,6 +45,8 @@ import time
 
 import numpy as np
 
+from ._timing import card_of, merge_report
+
 HERE = os.path.dirname(os.path.abspath(__file__))
 ZOO = ("protonet,DKT,matchingnet,relationnet,relationnet_softmax,"
        "baseline,baseline++,maml_approx,maml")
@@ -177,18 +179,6 @@ def maml_budget_epochs(shot: int) -> int:
     return 15 if shot == 1 else 10
 
 
-def _record(path: str, update: dict) -> None:
-    """Merge `update` into the report after every row, so that a run cut
-    short keeps what it finished."""
-    report = {}
-    if os.path.exists(path):
-        with open(path) as f:
-            report = json.load(f)
-    report.update(update)
-    with open(path, "w") as f:
-        json.dump(report, f, indent=2)
-
-
 def main(argv=None, device=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--methods", default="DKT",
@@ -214,22 +204,22 @@ def main(argv=None, device=None) -> dict:
     methods = (ZOO if args.methods == "zoo" else args.methods).split(",")
 
     from .. import save_features, test, test_uncertainty, train
-    from .._device import card_line, resolve_device
+    from .._device import resolve_device
 
     device = resolve_device(device)
     report = os.path.abspath(args.report)
-    card = card_line() if device.type == "cuda" else "cpu"
+    card = card_of(device)
     tag = "digits_cross" if args.cross else "digits_real"
     existing = {}
     if os.path.exists(report):
         with open(report) as f:
             existing = json.load(f)
-    _record(report, {f"{tag}_card": card})
+    merge_report(report, {f"{tag}_card": card})
     rows: dict = {}
 
     def record(row: dict) -> None:
         rows.update(row)
-        _record(report, row)
+        merge_report(report, row)
 
     cwd = os.getcwd()
     workdir = (contextlib.nullcontext(args.root) if args.root

@@ -39,7 +39,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-from .digits_real import _record
+from ._timing import card_of, merge_report
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPORT = os.path.join(HERE, "regression_report.json")
@@ -244,7 +244,7 @@ def main(argv=None, device=None) -> dict:
     tracks = args.tracks.split(",")
     seeds = [int(s) for s in args.seeds.split(",")]
 
-    from .._device import card_line, resolve_device
+    from .._device import resolve_device
 
     device = resolve_device(device)
     report = os.path.abspath(args.report)
@@ -252,14 +252,14 @@ def main(argv=None, device=None) -> dict:
     if os.path.exists(report):
         with open(report) as f:
             existing = json.load(f)
-    card = card_line() if device.type == "cuda" else "cpu"
-    _record(report, {"card": card, "jax_rows": JAX_ROWS})
+    card = card_of(device)
+    merge_report(report, {"card": card, "jax_rows": JAX_ROWS})
     rows: dict = {}
 
     def record(row: dict) -> None:
         print(json.dumps(row), flush=True)
         rows.update(row)
-        _record(report, row)
+        merge_report(report, row)
 
     def wanted(track: str, key: str) -> bool:
         if track not in tracks:

@@ -47,7 +47,8 @@ import time
 import numpy as np
 import torch
 
-from .digits_real import _record, _render_glyph_class
+from ._timing import card_of, merge_report
+from .digits_real import _render_glyph_class
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPORT = os.path.join(HERE, "woodbury_report.json")
@@ -196,17 +197,17 @@ def main(argv=None, device=None) -> dict:
     args = ap.parse_args(argv)
 
     from .. import test, train
-    from .._device import card_line, resolve_device
+    from .._device import resolve_device
     from ..ops.fused_mll import fused_linear_mll
 
     device = resolve_device(device)
     report = os.path.abspath(args.report)
-    card = card_line() if device.type == "cuda" else "cpu"
+    card = card_of(device)
     rows: dict = {}
 
     def record(row: dict) -> None:
         rows.update(row)
-        _record(report, row)
+        merge_report(report, row)
 
     record({"glyphs20w_card": card, "glyphs20w_protocol": (
         "Woodbury-routed workload: 250 synthetic glyph classes (base 200/"

@@ -45,10 +45,11 @@ def apply_trunk(module, x: torch.Tensor, train: bool, dtype=None,
     """Run a trunk with the reference's BatchNorm semantics and the
     mixed-precision law of the JAX package (methods/base.py:55-96).
 
-    Returns (features float32, stats): in train mode BatchNorm uses batch
-    statistics (per episode when ep_groups > 1) and `stats` holds the new
-    running averages for merge_stats; in eval mode (train=False) it uses
-    the running averages and `stats` is None.
+    Returns (features float32, or float64 for a float64 trunk, stats): in
+    train mode BatchNorm uses batch statistics (per episode when
+    ep_groups > 1) and `stats` holds the new running averages for
+    merge_stats; in eval mode (train=False) it uses the running averages
+    and `stats` is None.
 
     The law for dtype=bfloat16, written out rather than left to autocast:
       * uint8 images are normalised to float32 before the cast;
@@ -65,7 +66,7 @@ def apply_trunk(module, x: torch.Tensor, train: bool, dtype=None,
     if dtype is not None and dtype != torch.float32:
         x = preprocess_input(x).to(dtype)
     out = module(x, train, ep_groups, stats)
-    return out.to(torch.float32), stats
+    return out.to(torch.promote_types(out.dtype, torch.float32)), stats
 
 
 @torch.no_grad()

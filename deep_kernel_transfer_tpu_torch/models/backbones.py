@@ -84,10 +84,11 @@ class BatchStats(dict):
 class EpisodicBatchNorm(nn.Module):
     """BatchNorm over the channel axis (dim 1) with torch's running-average
     convention: new = (1-m) old + m batch, m = 0.1, unbiased running
-    variance; eps 1e-5. Statistics are float32 whatever the input dtype.
-    With ep_groups > 1 the running update is the per-episode update
-    averaged over episodes. A float32 input takes the two-pass variance,
-    a lower-precision one the one-pass E[x^2] - m^2 (JAX backbones.py
+    variance; eps 1e-5. Statistics are float32 for a float32 or
+    lower-precision input, float64 for a float64 one. With ep_groups > 1
+    the running update is the per-episode update averaged over episodes.
+    A float32 or float64 input takes the two-pass variance, a
+    lower-precision one the one-pass E[x^2] - m^2 (JAX backbones.py
     :125-139). Where `stats` is a BatchStats with a `batch_sum` and
     ep_groups is 1, the statistics are those of the whole batch that the
     ranks split between them."""
@@ -112,7 +113,9 @@ class EpisodicBatchNorm(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = True, ep_groups: int = 1,
                 stats: dict | None = None) -> torch.Tensor:
         c = x.shape[1]
-        xf = x.to(torch.float32)
+        acc = torch.promote_types(x.dtype, torch.float32)
+        two_pass = x.dtype == acc
+        xf = x.to(acc)
         spatial = (1,) * (x.dim() - 2)
         if not train:
             mean = self.running_mean.view(1, c, *spatial)
@@ -131,7 +134,7 @@ class EpisodicBatchNorm(nn.Module):
                 n = batch_sum(torch.full((1, 1), xg[0].numel() / c,
                                          device=x.device))
                 mean = batch_sum(xg.sum(dim=axes)) / n
-                if x.dtype == torch.float32:
+                if two_pass:
                     var = batch_sum(torch.square(
                         xg - mean.view(bshape)).sum(dim=axes)) / n
                 else:
@@ -140,7 +143,7 @@ class EpisodicBatchNorm(nn.Module):
                 unbiased_factor = n / torch.clamp(n - 1.0, min=1.0)
             else:
                 mean = xg.mean(dim=axes)  # [G, C]
-                if x.dtype == torch.float32:
+                if two_pass:
                     var = torch.square(xg - mean.view(bshape)).mean(dim=axes)
                 else:
                     ex2 = torch.square(xg).mean(dim=axes)
@@ -156,8 +159,8 @@ class EpisodicBatchNorm(nn.Module):
             y = (xg - mean.view(bshape)) * torch.rsqrt(var.view(bshape)
                                                        + self.eps)
             y = y.reshape(xf.shape)
-        w = self.weight.to(x.dtype).to(torch.float32).view(1, c, *spatial)
-        b = self.bias.to(x.dtype).to(torch.float32).view(1, c, *spatial)
+        w = self.weight.to(x.dtype).to(acc).view(1, c, *spatial)
+        b = self.bias.to(x.dtype).to(acc).view(1, c, *spatial)
         return (y * w + b).to(x.dtype)
 
 

@@ -1,0 +1,171 @@
+"""Whether the comparators' gradient depends on how the episode batch is
+split (ROADMAP C4), decided in float64.
+
+The port's one-process step runs the trunk once over the flat batch with
+per-episode BatchNorm statistics (methods/base.py::EpisodicMethod.
+batch_features, ep_groups = B); the episode-parallel step gives each rank
+its share of the episodes and averages the ranks' gradients
+(parallel/mesh.py::make_sharded_train_step; MAML, whose loss sums its
+episodes, sums them). In exact arithmetic the two are equal. Here they are
+computed in one process, the halves one after another, for protonet,
+matchingnet, relationnet and maml on the JAX tests' tiny trunk
+(ConvNetS(depth=2), 16 px; ConvNetSNopool for relationnet), 5-way, 4
+episodes, with the JAX package's weights (BatchNorm randomised) carried
+over by utils/convert.py::state_from_jax.
+
+  * float64 parameters and trunk: the whole batch and the mean of the
+    halves must agree within 1e-10 of the gradient's norm;
+  * float32: how far each arrangement lies from the float64 gradient, and
+    the JAX package's own gap between its whole-batch gradient and the
+    same step body's on two virtual CPU devices under
+    make_sharded_train_step's shardings (episodes split, parameters
+    replicated), on the same inputs. These are printed (pytest -s) and
+    recorded in ROADMAP C4. They are rounding, so they are bounded only
+    loosely: the split in float32 (both packages) by 1e-4 of the norm,
+    and float32 against float64 by the ground rules' gradient tolerance,
+    2e-2 (MatchingNet's cosine scores times 100 put its float32 gradient
+    3e-3 from the float64 one in both arrangements alike).
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from deep_kernel_transfer_tpu.methods import (MAML as JMAML,
+                                              MatchingNet as JMatchingNet,
+                                              ProtoNet as JProtoNet,
+                                              RelationNet as JRelationNet)
+from deep_kernel_transfer_tpu.models import backbones as jbb
+from deep_kernel_transfer_tpu.parallel import (episode_sharding, make_mesh,
+                                               replicate_tree, replicated,
+                                               shard_episode_batch)
+from deep_kernel_transfer_tpu_torch.methods import (MAML, MatchingNet,
+                                                    ProtoNet, RelationNet)
+from deep_kernel_transfer_tpu_torch.models import backbones as tbb
+from deep_kernel_transfer_tpu_torch.models.backbones import preprocess_input
+from deep_kernel_transfer_tpu_torch.parallel.mesh import loss_reduction
+from deep_kernel_transfer_tpu_torch.utils.convert import state_from_jax
+from test_torch_methods_zoo import _randomise_bn
+
+B, WAY, SHOT, QUERY, PX = 4, 5, 1, 2, 16
+FLOAT64_LIMIT = 1e-10  # of the gradient's norm
+SPLIT_LIMIT = 1e-4  # float32, whole against halves
+ROUNDING_LIMIT = 2e-2  # float32 against float64
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread while this module runs (the suite runs several
+    test processes side by side)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _pair(name: str, dtype: str):
+    """(JAX method, port method) on the JAX tests' tiny omniglot trunk."""
+    if name == "protonet":
+        return (JProtoNet(jbb.ConvNetS(depth=2), WAY, SHOT,
+                          feature_dtype="float32"),
+                ProtoNet(tbb.ConvNet(2, first_channel=True), WAY, SHOT,
+                         feature_dtype=dtype, device="cpu"))
+    if name == "matchingnet":
+        return (JMatchingNet(jbb.ConvNetS(depth=2), 1024, WAY, SHOT,
+                             feature_dtype="float32"),
+                MatchingNet(tbb.ConvNet(2, first_channel=True), 1024, WAY,
+                            SHOT, feature_dtype=dtype, device="cpu"))
+    if name == "relationnet":
+        return (JRelationNet(jbb.ConvNetSNopool(depth=2), (2, 2, 64), WAY,
+                             SHOT, feature_dtype="float32"),
+                RelationNet(tbb.ConvNet(2, first_channel=True, nopool=True),
+                            (64, 2, 2), WAY, SHOT, feature_dtype=dtype,
+                            device="cpu"))
+    return (JMAML(jbb.ConvNetS(depth=2), WAY, SHOT, task_update_num=3),
+            MAML(tbb.ConvNet(2, first_channel=True), WAY, SHOT,
+                 task_update_num=3, device="cpu"))
+
+
+def _port_method(name: str, params: dict, xb: np.ndarray, dtype):
+    """The port's method with the JAX weights, its parameters (and, for
+    the methods with a feature dtype, its trunk) in `dtype`; the images as
+    the method takes them (MAML runs its trunk in its parameters' dtype on
+    float images)."""
+    _, tm = _pair(name, str(dtype).split(".")[-1])
+    tm.init(torch.from_numpy(xb[0]), torch.Generator().manual_seed(0))
+    state = state_from_jax(params, tm, PX)
+    tm.load_state_dict({k: torch.tensor(v) for k, v in state.items()},
+                       strict=True)
+    tm.to(dtype)
+    x = torch.from_numpy(xb)
+    if name == "maml":
+        x = preprocess_input(x).to(dtype)
+    return tm, x
+
+
+def _gradient(tm, x: torch.Tensor, parts: int) -> np.ndarray:
+    """The flat gradient of the step on `parts` equal shares of the
+    episodes, combined as the episode-parallel step combines the ranks'."""
+    total = None
+    for share in x.chunk(parts):
+        tm.zero_grad(set_to_none=True)
+        loss, _ = tm.batch_loss_train(share)
+        loss.backward()
+        g = torch.cat([p.grad.reshape(-1).to(torch.float64)
+                       for p in tm.parameters()]).numpy()
+        total = g if total is None else total + g
+    return total / parts if loss_reduction(tm) == "mean" else total
+
+
+def _gap(a: np.ndarray, b: np.ndarray) -> float:
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def _jax_gap(jm, params: dict, xb: np.ndarray) -> float:
+    """The JAX package's f32 gradient on the whole batch on one device
+    against the same on two virtual CPU devices, the episodes split."""
+    p = jax.tree.map(jnp.asarray, params)
+    x = jnp.asarray(xb)
+    grad = jax.grad(lambda q, xx: jm.batch_loss_train(q, xx)[0])
+    whole = jax.jit(grad)(p, x)
+    mesh = make_mesh(2)
+    split = jax.jit(grad, in_shardings=(replicated(mesh),
+                                        episode_sharding(mesh)),
+                    out_shardings=replicated(mesh))(
+        replicate_tree(p, mesh), shard_episode_batch(x, mesh))
+    flat = [np.concatenate([np.asarray(v, np.float64).reshape(-1)
+                            for v in jax.tree.leaves(g)])
+            for g in (whole, split)]
+    return _gap(flat[1], flat[0])
+
+
+@pytest.mark.parametrize("name", ["protonet", "matchingnet", "relationnet",
+                                  "maml"])
+def test_batch_split_gradient_agrees_in_float64(name):
+    xb = np.random.RandomState(9).randint(
+        0, 256, (B, WAY, SHOT + QUERY, PX, PX, 3)).astype(np.uint8)
+    jm, _ = _pair(name, "float32")
+    params = _randomise_bn(jax.tree.map(np.asarray, jm.init(
+        jax.random.PRNGKey(0), jnp.asarray(xb[0])).params),
+        np.random.RandomState(1))
+
+    grads = {}
+    for dtype in (torch.float64, torch.float32):
+        tm, x = _port_method(name, params, xb, dtype)
+        for parts in (1, 2):
+            grads[dtype, parts] = _gradient(tm, x, parts)
+    exact = grads[torch.float64, 1]
+    gaps = {"float64 whole vs halves": _gap(grads[torch.float64, 2], exact),
+            "float32 whole vs float64": _gap(grads[torch.float32, 1], exact),
+            "float32 halves vs float64": _gap(grads[torch.float32, 2], exact),
+            "float32 whole vs halves": _gap(grads[torch.float32, 2],
+                                            grads[torch.float32, 1]),
+            "JAX float32 one device vs two": _jax_gap(jm, params, xb)}
+    print(f"\n{name}: " + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items()))
+    assert gaps["float64 whole vs halves"] < FLOAT64_LIMIT, gaps
+    assert gaps["float32 whole vs halves"] < SPLIT_LIMIT, gaps
+    assert gaps["JAX float32 one device vs two"] < SPLIT_LIMIT, gaps
+    assert gaps["float32 whole vs float64"] < ROUNDING_LIMIT, gaps
+    assert gaps["float32 halves vs float64"] < ROUNDING_LIMIT, gaps
