@@ -83,6 +83,12 @@
    and DKT's budget sweep at 1 and 5 shots with the linear kernel, 2
    epochs a run: every segment finite and positive, the peaks under the
    datasheet's rates, the fused MLL's launches counted;
+   the Laplace probe (drive_laplace_probe_path) on the checkpoints that
+   sweep leaves, 20 novel episodes at 1 and 5 shots: arm (a) the port's
+   Laplace head in f32 on the card, arm (b) the port's float64 copy of
+   scikit-learn's classifier on the host (scikit-learn not loaded), arm
+   (c) the learned GP head, each above 35%, and the support Gram's mean
+   off-diagonal; no kernel launched;
    then the exact GP's Woodbury route against its dense route at N=4096,
    D=256: agreement, ms and peak memory of each; the Woodbury CLI
    workload at full width (250 glyph classes, DKT Conv4S bncossim, 20-way
@@ -2745,13 +2751,16 @@ STUDY_CLI_EPOCHS, STUDY_SWEEP_EPOCHS = 2, 2
 PEAK_SIZES = {"bfloat16": (4096, 8192), "float32": (4096,)}
 
 
-def drive_studies_path(device, card: str) -> dict:
+def drive_studies_path(device, card: str, digits_root: str | None = None
+                       ) -> dict:
     """The study runners of deep_kernel_transfer_tpu_torch/benchmarks at
     full width and cut depth, each through its `main`, their rows in a
     temporary report: profile_step at B = 32, profile_resnet at profile
     batch 8 with the knee at 8 and 16, gp_probe_ab, peak_sweep at bf16
     N = 4096 and 8192 and f32 N = 4096, train_cli_e2e with 2 added epochs
-    and dkt_sweep of the linear kernel, 2 epochs a run, 100 test episodes.
+    and dkt_sweep of the linear kernel, 2 epochs a run, 100 test episodes,
+    in `digits_root` where given (its default runs' checkpoints stay there
+    for the Laplace probe part), else in a temporary directory.
     Checks every segment finite and positive, the peak readings under the
     datasheet's rates and the fused MLL's launches, counted from 0: each
     timed call of a loss or step segment and each train step of the CLI
@@ -2783,6 +2792,7 @@ def drive_studies_path(device, card: str) -> dict:
     fused_linear_mll.launches = 0
     with tempfile.TemporaryDirectory() as root:
         report = os.path.join(root, "studies.json")
+        runs[-1][1].append(f"--root={digits_root or os.path.join(root, 'd')}")
         for runner, argv, launches in runs:
             name = runner.__name__.split(".")[-1]
             before = fused_linear_mll.launches
@@ -2824,6 +2834,56 @@ def drive_studies_path(device, card: str) -> dict:
     print(f"studies phase: {sum(wall.values()):.1f} s in all, fused_linear_mll"
           f" launches {total} [{card}]", flush=True)
     return {"fused_linear_mll": total}
+
+
+PROBE_EPISODES = 20  # a shot: the cut depth of the Laplace probe part
+
+
+def drive_laplace_probe_path(device, card: str, digits_root: str) -> dict:
+    """The Laplace probe (benchmarks/laplace_probe.py) through its `main`
+    at cut depth: PROBE_EPISODES novel episodes at 1 and 5 shots on the
+    default runs' checkpoints that the studies phase's sweep leaves in
+    digits_root, so nothing is trained here. Prints the three arms and the
+    Gram's off-diagonal; checks the 14 shot rows and the protocol row
+    under the JAX key names, each arm above 35%, arm (b) fitted in float64
+    with scikit-learn not loaded, and no kernel launched (the probe's heads
+    are the plain GP and the Laplace Newton loop). Returns the launches."""
+    from deep_kernel_transfer_tpu_torch.benchmarks import laplace_probe
+    from deep_kernel_transfer_tpu_torch.ops.fused_mll import fused_linear_mll
+
+    fused_linear_mll.launches = 0
+    t0 = time.perf_counter()
+    rows = laplace_probe.main(
+        [f"--episodes={PROBE_EPISODES}", "--shots=1,5",
+         f"--root={digits_root}",
+         f"--report={os.path.join(digits_root, 'probe.json')}"], device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = fused_linear_mll.launches
+    keys = set(laplace_probe.JAX_ROWS) | {"digits_real_laplace_probe_protocol"}
+    missing = keys - set(rows)
+    accs = {k: v for k, v in rows.items() if k.endswith("_acc")}
+    for shot in (1, 5):
+        pre = f"digits_real_laplace_probe_{shot}shot"
+        print(f"laplace probe part: {shot}-shot over {PROBE_EPISODES} "
+              f"episodes: ours {rows[pre + '_ours_acc']}% | sklearn copy "
+              f"{rows[pre + '_sklearn_acc']}% | learned GP "
+              f"{rows[pre + '_gp_acc']}% | offdiag "
+              f"{rows[pre + '_gram_offdiag']:.3e} [{card}]", flush=True)
+    float64 = all(rows[f"digits_real_laplace_probe_{s}shot_sklearn_float64"]
+                  for s in (1, 5))
+    sklearn_loaded = "sklearn" in sys.modules
+    print(f"laplace probe part: {wall:.1f} s, arm (b) float64 {float64}, "
+          f"sklearn loaded {sklearn_loaded}, fused_linear_mll launches "
+          f"{launched} [{card}]", flush=True)
+    if missing or len(accs) != 6 or not all(35.0 < v <= 100.0
+                                            for v in accs.values()):
+        raise AssertionError(f"the probe's rows: missing {sorted(missing)}, "
+                             f"accuracies {accs}")
+    if not float64 or sklearn_loaded or launched:
+        raise AssertionError("arm (b) not the float64 copy, scikit-learn "
+                             "loaded or a kernel launched")
+    return {"fused_linear_mll": launched}
 
 
 def main() -> int:
@@ -2871,20 +2931,24 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 5. the main paths: DKT meta-training, the GP memory regime, the CLIs,
-    # the test-time heads on the digits, ResNet10, the parallel paths and
-    # the study runners; then the exact GP's Woodbury route.
+    # the test-time heads on the digits, ResNet10, the parallel paths, the
+    # study runners and the Laplace probe on the studies' digits
+    # checkpoints; then the exact GP's Woodbury route.
     # A kernel's launches are summed over the paths, each counted from 0.
     launches, step_ms = drive_main_path(device, card)
+    digits = tempfile.TemporaryDirectory()
     paths = [lambda: drive_gp_memory_path(device),
              lambda: drive_cli_path(device, card, step_ms),
              lambda: drive_heads_path(device, card),
              lambda: drive_resnet_path(device, card),
              lambda: drive_parallel_path(device, card),
-             lambda: drive_studies_path(device, card)]
+             lambda: drive_studies_path(device, card, digits.name),
+             lambda: drive_laplace_probe_path(device, card, digits.name)]
     for path in paths:
         torch.cuda.empty_cache()
         for name, count in path().items():
             launches[name] = launches.get(name, 0) + count
+    digits.cleanup()
     drive_woodbury_path(device, card)
     torch.cuda.empty_cache()
     drive_woodbury_cli_path(device, card)

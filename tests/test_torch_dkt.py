@@ -212,16 +212,18 @@ def test_needs_cuda_unless_cpu_is_asked(monkeypatch):
 
 
 def test_port_imports_no_jax():
-    """With jax, flax, optax and matplotlib unimportable, every module of
-    the port imports (the regression track's, the sines scripts, the
-    accuracy runners, the native decoder, the episode-parallel mesh, the
-    profiling helpers and the export CLI among them; importing builds no
-    decoder and starts no process group), and a CPU train step and eval
-    of DKT, of DKT regression and of the sines scripts run; nothing of the
-    JAX package gets loaded."""
+    """With jax, flax, optax, matplotlib and sklearn unimportable, every
+    module of the port imports (the regression track's, the sines scripts,
+    the accuracy runners, the native decoder, the episode-parallel mesh,
+    the profiling helpers, the export CLI, the Laplace probe and its copy
+    of scikit-learn's classifier among them; importing builds no decoder
+    and starts no process group), and a CPU train step and eval of DKT, of
+    DKT regression and of the sines scripts, and the Laplace probe's arms
+    on one episode, run; nothing of the JAX package or of scikit-learn
+    gets loaded."""
     code = r"""
 import importlib, pkgutil, sys
-for name in ("jax", "flax", "optax", "matplotlib"):
+for name in ("jax", "flax", "optax", "matplotlib", "sklearn"):
     sys.modules[name] = None
 import torch
 import deep_kernel_transfer_tpu_torch as port
@@ -231,7 +233,8 @@ new = ["methods.dkt_regression", "methods.feature_transfer", "data.qmul",
        "data.sines", "train_regression", "test_regression", "sines.common",
        "sines.train_DKT", "sines.train_FT", "sines.train_MAML",
        "benchmarks.regression_real", "native", "parallel.mesh",
-       "utils.profiling", "export_checkpoint"]
+       "utils.profiling", "export_checkpoint", "benchmarks.sklearn_gpc",
+       "benchmarks.laplace_probe"]
 missing = [n for n in new if port.__name__ + "." + n not in sys.modules]
 assert not missing, missing
 import torch.distributed as dist
@@ -246,6 +249,10 @@ x = torch.randint(0, 256, (2, 5, 3, 16, 16, 3), dtype=torch.uint8)
 m = DKT(ConvNet(2), 5, 1, device="cpu").init(x[0])
 assert torch.isfinite(m.train_step(x)["loss"])
 m.batch_correct(x)
+from deep_kernel_transfer_tpu_torch.benchmarks import laplace_probe
+arms = laplace_probe.episode_arms(
+    m, torch.randint(0, 256, (5, 16, 16, 16, 3), dtype=torch.uint8), 1)
+assert arms["sklearn_float64"] and 0 <= arms["sklearn"] <= 100
 r = DKTRegression(Conv3(), 144, "spectral", device="cpu").init()
 xr = torch.rand(2, 19, 40, 40, 3)
 assert torch.isfinite(r.unbatched_train_step(xr, torch.rand(2, 19))["loss"])
@@ -255,7 +262,7 @@ for script in (train_FT, train_MAML):
                 device="cpu")
 loaded = [k for k, v in sys.modules.items() if v is not None
           and k.split(".")[0] in ("deep_kernel_transfer_tpu", "jax", "flax",
-                                  "optax", "matplotlib")]
+                                  "optax", "matplotlib", "sklearn")]
 assert not loaded, loaded
 print("PORT_OK")
 """
