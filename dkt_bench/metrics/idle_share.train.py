@@ -1,0 +1,6 @@
+"""idle_share.train: the traced window's idle share (readers.idle_share)."""
+from dkt_bench import readers
+
+
+def read(r):
+    return readers.idle_share(r, "train")

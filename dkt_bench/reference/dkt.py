@@ -1,0 +1,204 @@
+"""DKT's training steps and eval head in the plain reference (see
+common.py), and the weights and split that a run draws from its seed and
+hands to both the program and the reference."""
+from __future__ import annotations
+
+import importlib
+
+import torch
+
+from .common import (adam, augment, augment_draws, bncossim, gp_mll,
+                     gp_posterior_mean, sample_ids)
+
+RUNNING = ("bn_running_mean", "bn_running_var")
+
+
+def trunk(model: str):
+    """reference/trunk_<model>.py."""
+    return importlib.import_module(f"{__package__}.trunk_{model}")
+
+
+def layout(cfg: dict, n_way: int) -> dict:
+    """name -> (shape, kind) of every parameter and BatchNorm buffer, in
+    the program's state_dict names: the trunk's, the bncossim head's and
+    the per-way GP's."""
+    t = trunk(cfg["model"])
+    out = dict(t.param_shapes(cfg["image_size"]))
+    d = t.feat_dim(cfg["image_size"])
+    for leaf in ("weight", "bias", "running_mean", "running_var"):
+        out[f"feature.trunk.bn_out.{leaf}"] = ((d,), "bn_" + leaf)
+    out["gp.mean.constant"] = ((n_way,), "gp_mean")
+    out["gp.kernel.raw_outputscale"] = ((n_way,), "gp_scale")
+    return out
+
+
+def trainable(cfg: dict, n_way: int) -> list[str]:
+    return [k for k, (_, kind) in layout(cfg, n_way).items()
+            if kind not in RUNNING]
+
+
+def draw_weights(cfg: dict, n_way: int, gen: torch.Generator, device,
+                 trained: bool = False) -> dict:
+    """Every parameter and buffer, float32 on `device`, from `gen` in two
+    calls (one normal, one uniform draw for all leaves). The initial law
+    of the reference: convolutions N(0, 2 / (k k out)), zero conv biases,
+    unit BatchNorms, the GP's raw parameters 0. `trained` draws a state
+    such as training leaves instead: BatchNorm scales U(0.5, 1.5), shifts
+    N(0, 0.1), running means N(0, 0.1), running variances U(0.5, 2), conv
+    biases N(0, 0.01), the GP's constant means N(0, 0.1) and raw
+    outputscales N(0, 0.5)."""
+    shapes = layout(cfg, n_way)
+    sizes = [torch.Size(s).numel() for s, _ in shapes.values()]
+    normal = torch.randn(sum(sizes), generator=gen, device=device)
+    uniform = torch.rand(sum(sizes), generator=gen, device=device)
+    out, at = {}, 0
+    for (name, (shape, kind)), n in zip(shapes.items(), sizes):
+        z = normal[at:at + n].view(shape)
+        u = uniform[at:at + n].view(shape)
+        at += n
+        if kind == "conv":
+            out[name] = z * (2.0 / (shape[0] * shape[2] * shape[3])) ** 0.5
+        elif not trained:
+            out[name] = (torch.ones(shape, device=device)
+                         if kind in ("bn_weight", "bn_running_var")
+                         else torch.zeros(shape, device=device))
+        elif kind == "bn_weight":
+            out[name] = 0.5 + u
+        elif kind == "bn_running_var":
+            out[name] = 0.5 + 1.5 * u
+        else:
+            sd = {"conv_bias": 0.01, "gp_scale": 0.5}.get(kind, 0.1)
+            out[name] = sd * z
+    return out
+
+
+def make_split(spec: dict, gen: torch.Generator, device) -> dict:
+    """A split drawn on `device`: `images` [n_class * per_class, side,
+    side, 3] uint8 noise in one call, class c holding images c*per_class
+    onwards; `table` [n_class, max(per_class, 128)] of image ids, slot j of
+    a class being its image j mod per_class; `counts` [n_class]."""
+    n_class, per, side = spec["n_class"], spec["per_class"], spec["side"]
+    images = torch.randint(0, 256, (n_class * per, side, side, 3),
+                           generator=gen, device=device, dtype=torch.uint8)
+    width = max(per, 128)
+    table = (torch.arange(n_class, device=device)[:, None] * per
+             + torch.arange(width, device=device)[None, :] % per)
+    counts = torch.full((n_class,), per, dtype=torch.int64, device=device)
+    return {"images": images, "table": table, "counts": counts}
+
+
+def draw_episodes(split: dict, gen, traffic: dict, size: int, batch: int,
+                  law: str = "stated"):
+    """One batch of episodes [batch, W, S+Q, size, size, 3] uint8, drawn
+    from `gen` as the program's feed draws it: the ids, then (with
+    augmentation) every image's crop, jitter and flip."""
+    w, k = traffic["n_way"], traffic["n_support"] + traffic["n_query"]
+    x = split["images"][sample_ids(split["table"], split["counts"], gen, w, k,
+                                   batch)]
+    if traffic["augment"]:
+        flat = x.reshape((-1,) + tuple(x.shape[-3:]))
+        draws = augment_draws(gen, flat.shape[0], flat.shape[1], size,
+                              flat.device)
+        x = augment(flat, draws, size, law).reshape(
+            (batch, w, k, size, size, 3))
+    return x
+
+
+def features(cfg: dict, p: dict, x, train: bool, law: str, stats: dict):
+    """[B, W*(S+Q), D] float32 bncossim features of episodes x."""
+    b = x.shape[0]
+    size = x.shape[-2]
+    z = trunk(cfg["model"]).forward(p, x.reshape(-1, size, size, 3), train,
+                                    b if train else 1, law, stats)
+    z = bncossim(p, z, train, b if train else 1, stats, law)
+    return z.reshape(b, -1, z.shape[-1])
+
+
+def batch_loss(cfg: dict, traffic: dict, p: dict, leaves: dict, x, law: str,
+               stats: dict):
+    """-(sum over ways of the MLL) averaged over the episodes x, with
+    per-episode BatchNorm statistics (stats gets the running averages);
+    `leaves` are the trainable leaves, `p` the rest."""
+    w, k = traffic["n_way"], traffic["n_support"] + traffic["n_query"]
+    z = features(cfg, {**p, **leaves}, x, True, law, stats)
+    return -gp_mll(leaves, z, w, k, cfg["gp_noise"], law).sum(1).mean()
+
+
+def exact_grad(cfg: dict, traffic: dict, weights: dict, x) -> dict:
+    """The loss's gradient in float64 on the episodes x: a leaf whose
+    gradient is nought in exact arithmetic, as a bias under a training-mode
+    BatchNorm is, reads nought here to float64's rounding."""
+    names = trainable(cfg, traffic["n_way"])
+    p = {n: v.detach().to(torch.float64) for n, v in weights.items()}
+    leaves = {n: p[n].clone().requires_grad_(True) for n in names}
+    loss = batch_loss(cfg, traffic, p, leaves, x, "float64", {})
+    grads = torch.autograd.grad(loss, [leaves[n] for n in names])
+    return {n: g.detach().cpu() for n, g in zip(names, grads)}
+
+
+def train_steps(cfg: dict, traffic: dict, weights: dict, split: dict,
+                feed_seed: int, steps: int, law: str = "stated",
+                exact_episodes: int = 0) -> dict:
+    """`steps` training steps from `weights` on the feed drawn from
+    feed_seed: per-episode BatchNorm statistics, -(sum over ways of the
+    MLL) averaged over episodes, Adam at the GP's and the trunk's rates,
+    then the running averages merged. Returns the episode batches
+    (`inputs`, uint8 on the host), each step's loss, the first step's
+    gradient (`grad1`) and every leaf after the last step (`params`);
+    with exact_episodes, also the float64 gradient on that many episodes
+    of the first batch (`grad_exact`)."""
+    device = split["images"].device
+    gen = torch.Generator(device=device).manual_seed(feed_seed)
+    w, b = traffic["n_way"], traffic["episode_batch"]
+    names = trainable(cfg, w)
+    lrs = {n: cfg["gp_lr"] if n.startswith("gp.") else cfg["feature_lr"]
+           for n in names}
+    p = {n: v.clone() for n, v in weights.items()}
+    state, out = {}, {"inputs": [], "losses": [], "grad1": None}
+    for t in range(1, steps + 1):
+        x = draw_episodes(split, gen, traffic, cfg["image_size"], b, law)
+        out["inputs"].append(x.cpu())
+        leaves = {n: p[n].detach().clone().requires_grad_(True) for n in names}
+        stats: dict = {}
+        loss = batch_loss(cfg, traffic, p, leaves, x, law, stats)
+        grads = dict(zip(names, torch.autograd.grad(
+            loss, [leaves[n] for n in names])))
+        adam(p, grads, state, lrs, t, tuple(cfg["adam"]["betas"]),
+             cfg["adam"]["eps"])
+        for name, (mean, var) in stats.items():
+            p[name + ".running_mean"] = mean
+            p[name + ".running_var"] = var
+        out["losses"].append(float(loss.detach()))
+        if t == 1:
+            out["grad1"] = {n: g.detach().cpu() for n, g in grads.items()}
+        del leaves, grads, loss, stats
+    out["params"] = {n: v.detach().cpu() for n, v in p.items()}
+    if exact_episodes:
+        del p, state
+        first = out["inputs"][0][:exact_episodes].to(device)
+        out["grad_exact"] = exact_grad(cfg, traffic, weights, first)
+    return out
+
+
+@torch.no_grad()
+def eval_means(cfg: dict, traffic: dict, weights: dict, split: dict,
+               protocol_seed: int, wanted, law: str = "stated") -> dict:
+    """{batch index: [b, W*Q, W] posterior means} of the wanted batches of
+    one protocol drawn from protocol_seed: its full batches of
+    episode_batch episodes, then the remainder as one smaller batch."""
+    device = split["images"].device
+    gen = torch.Generator(device=device).manual_seed(protocol_seed)
+    full, rem = divmod(traffic["protocol_episodes"], traffic["episode_batch"])
+    sizes = [traffic["episode_batch"]] * full + ([rem] if rem else [])
+    wanted = set(wanted)
+    out = {}
+    for j, b in enumerate(sizes):
+        if j > max(wanted, default=-1):
+            break
+        x = draw_episodes(split, gen, traffic, cfg["image_size"], b, law)
+        if j in wanted:
+            z = features(cfg, weights, x, False, law, {})
+            out[j] = gp_posterior_mean(weights, z, traffic["n_way"],
+                                       traffic["n_support"], cfg["gp_noise"],
+                                       law).cpu()
+    return out
