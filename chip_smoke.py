@@ -73,8 +73,9 @@
      84 px, 4 episodes or 16 images) against one process (the whole
      batch in one process printed beside it); (f) second-order MAML and
      MatchingNet on four gloo ranks, dp=2 x tp=2, f32, their conv and
-     LSTM weights as tp chunks, against one process; then StepTimer and a
-     torch.profiler trace (utils/profiling.py) around two train steps;
+     LSTM weights as tp chunks, against one process; then a
+     torch.profiler trace (utils/profiling.py) of two train steps, each
+     `dkt.` span of the step opened twice;
    the study runners of deep_kernel_transfer_tpu_torch/benchmarks through
    their `main` at full width and cut depth (drive_studies_path): the
    step's segment profile at B = 32, ResNet10's at B = 8 with the knee at
@@ -119,6 +120,7 @@ of the JAX package.
 """
 from __future__ import annotations
 
+import collections
 import json
 import math
 import multiprocessing
@@ -2329,6 +2331,39 @@ def check_tensor_parallel_zoo_one_card(device, card: str) -> None:
                              f"one process: {failed}")
 
 
+def check_traced_spans(model, batches, card: str) -> int:
+    """A torch.profiler trace (utils/profiling.py::trace) of two train
+    steps of `model` on `batches`: each `dkt.` span of the step opened
+    twice and the fused MLL launched twice. Returns the launches."""
+    from torch.autograd import DeviceType
+
+    from deep_kernel_transfer_tpu_torch.ops.fused_mll import fused_linear_mll
+    from deep_kernel_transfer_tpu_torch.utils.profiling import (SPAN_PREFIX,
+                                                                trace)
+
+    with tempfile.TemporaryDirectory() as d:
+        fused_linear_mll.launches = 0
+        with trace(d, model.device) as prof:
+            for i in range(2):
+                model.train_step(batches[i])
+            torch.cuda.synchronize()
+        files = {f: os.path.getsize(os.path.join(d, f))
+                 for f in os.listdir(d)}
+        n_p = fused_linear_mll.launches
+    spans = collections.Counter(
+        e.name for e in prof.events()
+        if e.device_type == DeviceType.CPU and e.name.startswith(SPAN_PREFIX))
+    print(f"profiling: trace files {files}; spans {dict(spans)}; "
+          f"fused_linear_mll launches {n_p} [{card}]", flush=True)
+    if not files or not sum(files.values()):
+        raise AssertionError("the trace directory is empty")
+    step_spans = ("step", "forward", "backward", "update", "trunk", "gp")
+    if n_p != 2 or any(spans[SPAN_PREFIX + s] != 2 for s in step_spans):
+        raise AssertionError("the traced steps did not open each span of "
+                             "the step once a step")
+    return n_p
+
+
 def drive_parallel_path(device, card: str) -> dict:
     """Episode parallelism at the main path's full width (DKT, Conv4,
     bncossim, 5w5s15q, 84 px, B = 32, bf16 trunk), then the profiling
@@ -2348,7 +2383,8 @@ def drive_parallel_path(device, card: str) -> dict:
         (check_zoo_two_ranks_one_card);
     (f) second-order MAML and MatchingNet on four gloo ranks, dp=2 x
         tp=2 (check_tensor_parallel_zoo_one_card);
-    then StepTimer and trace around two train steps."""
+    then the port's spans in a trace of two train steps
+    (check_traced_spans)."""
     import torch.distributed as dist
 
     from deep_kernel_transfer_tpu_torch import train
@@ -2356,8 +2392,6 @@ def drive_parallel_path(device, card: str) -> dict:
     from deep_kernel_transfer_tpu_torch.ops.fused_mll import fused_linear_mll
     from deep_kernel_transfer_tpu_torch.parallel import (
         make_mesh, make_sharded_train_step, shard_episode_batch)
-    from deep_kernel_transfer_tpu_torch.utils.profiling import (
-        StepTimer, annotate, trace)
 
     gen = torch.Generator(device=device).manual_seed(7)
     shape = (MAIN_B, MAIN_WAY, MAIN_SHOT + MAIN_QUERY, MAIN_PX, MAIN_PX, 3)
@@ -2444,25 +2478,8 @@ def drive_parallel_path(device, card: str) -> dict:
     check_zoo_two_ranks_one_card(device, card)
     check_tensor_parallel_zoo_one_card(device, card)
 
-    # the profiling helpers around two train steps
-    timer = StepTimer()
-    with tempfile.TemporaryDirectory() as d:
-        fused_linear_mll.launches = 0
-        with trace(d, device) as prof:
-            for i in range(2):
-                with annotate("train_step"), timer.phase("step") as ph:
-                    ph["sync"] = plain.train_step(batches[i])
-        files = {f: os.path.getsize(os.path.join(d, f))
-                 for f in os.listdir(d)}
-        n_p = fused_linear_mll.launches
-    spans = [e for e in prof.key_averages() if e.key == "train_step"]
-    print(f"profiling: StepTimer {timer.report()}; trace files {files}; "
-          f"'train_step' spans {spans[0].count if spans else 0}; "
-          f"fused_linear_mll launches {n_p} [{card}]", flush=True)
-    if not files or not sum(files.values()):
-        raise AssertionError("the trace directory is empty")
-    if timer.counts["step"] != 2 or n_p != 2 or not spans:
-        raise AssertionError("the profiled steps did not run as traced")
+    # the port's spans in a trace of two train steps
+    n_p = check_traced_spans(plain, batches, card)
     return {"fused_linear_mll": launches + n_p}
 
 

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..utils.profiling import annotate
 from .filelist import FileListMeta
 from .transforms import TransformPipeline, load_canvas_batch
 
@@ -174,6 +175,20 @@ class DeviceDataset:
                   f"{self.decoder} {t1 - t0:.2f} s, read and copy "
                   f"{time.perf_counter() - t1:.2f} s", flush=True)
 
+    @classmethod
+    def from_arrays(cls, images: torch.Tensor, table: torch.Tensor,
+                    counts: torch.Tensor,
+                    canvas: bool = False) -> "DeviceDataset":
+        """A split already on the device, with no files staged: images
+        [n_img, H, W, 3] uint8, the slot table [n_class, width] (slot j of
+        class c is image j % counts[c]) and the per-class counts, all on
+        the images' device."""
+        ds = cls.__new__(cls)
+        ds.device = images.device
+        ds.canvas, ds.mesh = canvas, None
+        ds.images, ds.table, ds.counts = images, table, counts
+        return ds
+
     def shard(self, mesh) -> "DeviceDataset":
         """A shallow copy for episode-parallel runs (JAX
         device_dataset.py:209-228): the split on this rank's device (each
@@ -238,31 +253,34 @@ def _check_augment(ds: DeviceDataset, augment_to: Optional[int]) -> None:
 
 def _draw(ds: DeviceDataset, gen, n_way, n_support, n_query, batch,
           augment_to):
-    k = n_support + n_query
-    ids = ds.sample_episode_ids(gen, n_way, k, batch)
-    rows = None
-    if ds.mesh is not None:
-        from ..parallel.mesh import pad_rows
+    with annotate("draw"):
+        k = n_support + n_query
+        ids = ds.sample_episode_ids(gen, n_way, k, batch)
+        rows = None
+        if ds.mesh is not None:
+            from ..parallel.mesh import pad_rows
 
-        rows = pad_rows(batch, ds.mesh).to(ds.device)
-        # the rows of this rank's dp coordinate: the tp ranks of one dp
-        # group take the same episodes and augmentation
-        local = rows.shape[0] // ds.mesh.dp
-        rows = rows[ds.mesh.dp_rank * local:(ds.mesh.dp_rank + 1) * local]
-        ids = ids[rows]
-    x = ds.images[ids]
-    if augment_to is not None:
-        from .device_aug import apply_augment, draw_augment
+            rows = pad_rows(batch, ds.mesh).to(ds.device)
+            # the rows of this rank's dp coordinate: the tp ranks of one dp
+            # group take the same episodes and augmentation
+            local = rows.shape[0] // ds.mesh.dp
+            rows = rows[ds.mesh.dp_rank * local:(ds.mesh.dp_rank + 1)
+                        * local]
+            ids = ids[rows]
+        x = ds.images[ids]
+        if augment_to is not None:
+            from .device_aug import apply_augment, draw_augment
 
-        per = n_way * k  # images an episode
-        draws = draw_augment(gen, batch * per, x.shape[-3], augment_to,
-                             ds.device)
-        if rows is not None:
-            idx = (rows[:, None] * per + torch.arange(
-                per, device=ds.device)).reshape(-1)
-            draws = tuple(d[idx] for d in draws)
-        x = apply_augment(x, draws, augment_to)
-    return x
+            with annotate("augment"):
+                per = n_way * k  # images an episode
+                draws = draw_augment(gen, batch * per, x.shape[-3],
+                                     augment_to, ds.device)
+                if rows is not None:
+                    idx = (rows[:, None] * per + torch.arange(
+                        per, device=ds.device)).reshape(-1)
+                    draws = tuple(d[idx] for d in draws)
+                x = apply_augment(x, draws, augment_to)
+        return x
 
 
 def make_fused_epoch(model, ds: DeviceDataset, n_way: int, n_support: int,

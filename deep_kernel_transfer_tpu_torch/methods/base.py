@@ -13,6 +13,7 @@ import torch.nn.functional as F
 
 from .._device import resolve_device
 from ..models.backbones import BatchStats, preprocess_input
+from ..utils.profiling import annotate
 
 
 def flatten_episode(x: torch.Tensor) -> torch.Tensor:
@@ -62,11 +63,12 @@ def apply_trunk(module, x: torch.Tensor, train: bool, dtype=None,
     them, a sum over the ranks with gradients (parallel.mesh.dp_sum); the
     BatchNorm statistics are then the whole batch's (BatchStats).
     """
-    stats = BatchStats(batch_sum) if train else None
-    if dtype is not None and dtype != torch.float32:
-        x = preprocess_input(x).to(dtype)
-    out = module(x, train, ep_groups, stats)
-    return out.to(torch.promote_types(out.dtype, torch.float32)), stats
+    with annotate("trunk"):
+        stats = BatchStats(batch_sum) if train else None
+        if dtype is not None and dtype != torch.float32:
+            x = preprocess_input(x).to(dtype)
+        out = module(x, train, ep_groups, stats)
+        return out.to(torch.promote_types(out.dtype, torch.float32)), stats
 
 
 @torch.no_grad()
@@ -88,18 +90,23 @@ def train_step_body(method, xb: torch.Tensor, average=None) -> dict:
     parallel/mesh.py::make_sharded_train_step): the gradients, the
     BatchNorm statistics and the loss go through it between the backward
     and the update, which is what the JAX psum computes."""
-    loss, stats = method.batch_loss_train(xb)
-    method.optimizer.zero_grad(set_to_none=True)
-    loss.backward()
-    loss = loss.detach()
-    if average is not None:
-        loss = loss.clone()
-        average([p.grad for group in method.optimizer.param_groups
-                 for p in group["params"] if p.grad is not None]
-                + [t for pair in (stats or {}).values() for t in pair]
-                + [loss])
-    method.optimizer.step()
-    merge_stats(stats)
+    with annotate("step"):
+        with annotate("forward"):
+            loss, stats = method.batch_loss_train(xb)
+        with annotate("backward"):
+            method.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+        loss = loss.detach()
+        if average is not None:
+            loss = loss.clone()
+            with annotate("average"):
+                average([p.grad for group in method.optimizer.param_groups
+                         for p in group["params"] if p.grad is not None]
+                        + [t for pair in (stats or {}).values() for t in pair]
+                        + [loss])
+        with annotate("update"):
+            method.optimizer.step()
+            merge_stats(stats)
     return {"loss": loss}
 
 

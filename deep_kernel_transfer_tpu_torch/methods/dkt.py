@@ -40,6 +40,7 @@ from ..gp.laplace import laplace_ovr_predict
 from ..models.backbones import EpisodicBatchNorm
 from ..ops.fused_mll import fused_linear_mll, supports
 from ..utils.adam import Adam
+from ..utils.profiling import annotate
 from .base import (apply_trunk, episode_labels, flatten_episode,
                    one_vs_rest_targets, query_accuracy, train_step_body)
 
@@ -205,15 +206,17 @@ class DKT(nn.Module):
         (each episode's own). The fused kernel where it applies, else the
         batched ExactGP engine."""
         n = z.shape[1]
-        if self.use_fused_mll and supports(self.kernel_type, n):
-            diffs = targets - gp["mean"]["constant"][..., None]
-            scales = softplus(gp["kernel"]["raw_outputscale"])
-            base = gp["kernel"]["base"]
-            if "raw_variance" in base:  # 'linear' kernel_type
-                scales = scales * softplus(base["raw_variance"])
-            return fused_linear_mll(z, diffs, scales, n,
-                                    float(self.spec.likelihood.fixed_noise))
-        return self.spec.mll(gp, z[:, None], targets)
+        with annotate("gp"):
+            if self.use_fused_mll and supports(self.kernel_type, n):
+                diffs = targets - gp["mean"]["constant"][..., None]
+                scales = softplus(gp["kernel"]["raw_outputscale"])
+                base = gp["kernel"]["base"]
+                if "raw_variance" in base:  # 'linear' kernel_type
+                    scales = scales * softplus(base["raw_variance"])
+                return fused_linear_mll(
+                    z, diffs, scales, n,
+                    float(self.spec.likelihood.fixed_noise))
+            return self.spec.mll(gp, z[:, None], targets)
 
     def train_step(self, xb: torch.Tensor, average=None) -> dict:
         """One optimizer step on the episode batch; returns the loss and
@@ -269,22 +272,23 @@ class DKT(nn.Module):
         features z_all [..., n_way*n_total, D] (eval protocol: GP
         conditioned on the support set, or on everything). `gp` replaces
         the model's GP params, e.g. by adapted ones with leaves [B, W]."""
-        s = self.n_support
-        lead, d = z_all.shape[:-2], z_all.shape[-1]
-        z = z_all.reshape(lead + (n_way, n_total, d))
-        z_query = z[..., s:, :].reshape(lead + (-1, d))
-        if gp is None:
-            gp = self._gp_params_for(n_way)
-        if condition_on_all:
-            x_train = z_all
-            targets = one_vs_rest_targets(n_way, n_total, z_all.device)
-        else:
-            x_train = z[..., :s, :].reshape(lead + (n_way * s, d))
-            targets = one_vs_rest_targets(n_way, s, z_all.device)
-        # the way axis of the GP params sits before the points axis
-        post = self.spec.posterior(gp, x_train.unsqueeze(-3), targets,
-                                   z_query.unsqueeze(-3))
-        return post.mean.transpose(-1, -2)
+        with annotate("posterior"):
+            s = self.n_support
+            lead, d = z_all.shape[:-2], z_all.shape[-1]
+            z = z_all.reshape(lead + (n_way, n_total, d))
+            z_query = z[..., s:, :].reshape(lead + (-1, d))
+            if gp is None:
+                gp = self._gp_params_for(n_way)
+            if condition_on_all:
+                x_train = z_all
+                targets = one_vs_rest_targets(n_way, n_total, z_all.device)
+            else:
+                x_train = z[..., :s, :].reshape(lead + (n_way * s, d))
+                targets = one_vs_rest_targets(n_way, s, z_all.device)
+            # the way axis of the GP params sits before the points axis
+            post = self.spec.posterior(gp, x_train.unsqueeze(-3), targets,
+                                       z_query.unsqueeze(-3))
+            return post.mean.transpose(-1, -2)
 
     def _batch_features(self, xb: torch.Tensor) -> torch.Tensor:
         """Eval-mode features [B, n_way*(S+Q), D] of xb [B, n_way, S+Q,

@@ -39,6 +39,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..gp.kernels import full_f32
+from ..utils.profiling import annotate
 
 # ImageNet statistics (reference data/datamgr.py:15)
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -112,56 +113,61 @@ class EpisodicBatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = True, ep_groups: int = 1,
                 stats: dict | None = None) -> torch.Tensor:
-        c = x.shape[1]
-        acc = torch.promote_types(x.dtype, torch.float32)
-        two_pass = x.dtype == acc
-        xf = x.to(acc)
-        spatial = (1,) * (x.dim() - 2)
-        if not train:
-            mean = self.running_mean.view(1, c, *spatial)
-            var = self.running_var.view(1, c, *spatial)
-            y = (xf - mean) * torch.rsqrt(var + self.eps)
-        else:
-            if x.shape[0] % ep_groups:
-                raise ValueError(f"batch {x.shape[0]} is not a multiple of "
-                                 f"ep_groups={ep_groups}")
-            xg = xf.reshape(ep_groups, x.shape[0] // ep_groups, *x.shape[1:])
-            axes = (1,) + tuple(range(3, xg.dim()))  # all but group, channel
-            bshape = (ep_groups, 1, c) + spatial
-            batch_sum = getattr(stats, "batch_sum", None)
-            if batch_sum is not None and ep_groups == 1:
-                # the whole batch's statistics, its rows split over ranks
-                n = batch_sum(torch.full((1, 1), xg[0].numel() / c,
-                                         device=x.device))
-                mean = batch_sum(xg.sum(dim=axes)) / n
-                if two_pass:
-                    var = batch_sum(torch.square(
-                        xg - mean.view(bshape)).sum(dim=axes)) / n
-                else:
-                    ex2 = batch_sum(torch.square(xg).sum(dim=axes)) / n
-                    var = torch.clamp(ex2 - torch.square(mean), min=0.0)
-                unbiased_factor = n / torch.clamp(n - 1.0, min=1.0)
+        with annotate("batchnorm"):
+            c = x.shape[1]
+            acc = torch.promote_types(x.dtype, torch.float32)
+            two_pass = x.dtype == acc
+            xf = x.to(acc)
+            spatial = (1,) * (x.dim() - 2)
+            if not train:
+                mean = self.running_mean.view(1, c, *spatial)
+                var = self.running_var.view(1, c, *spatial)
+                y = (xf - mean) * torch.rsqrt(var + self.eps)
             else:
-                mean = xg.mean(dim=axes)  # [G, C]
-                if two_pass:
-                    var = torch.square(xg - mean.view(bshape)).mean(dim=axes)
+                if x.shape[0] % ep_groups:
+                    raise ValueError(f"batch {x.shape[0]} is not a multiple "
+                                     f"of ep_groups={ep_groups}")
+                xg = xf.reshape(ep_groups, x.shape[0] // ep_groups,
+                                *x.shape[1:])
+                # all axes but group and channel
+                axes = (1,) + tuple(range(3, xg.dim()))
+                bshape = (ep_groups, 1, c) + spatial
+                batch_sum = getattr(stats, "batch_sum", None)
+                if batch_sum is not None and ep_groups == 1:
+                    # the whole batch's statistics, its rows split over ranks
+                    n = batch_sum(torch.full((1, 1), xg[0].numel() / c,
+                                             device=x.device))
+                    mean = batch_sum(xg.sum(dim=axes)) / n
+                    if two_pass:
+                        var = batch_sum(torch.square(
+                            xg - mean.view(bshape)).sum(dim=axes)) / n
+                    else:
+                        ex2 = batch_sum(torch.square(xg).sum(dim=axes)) / n
+                        var = torch.clamp(ex2 - torch.square(mean), min=0.0)
+                    unbiased_factor = n / torch.clamp(n - 1.0, min=1.0)
                 else:
-                    ex2 = torch.square(xg).mean(dim=axes)
-                    var = torch.clamp(ex2 - torch.square(mean), min=0.0)
-                n = xg[0].numel() / c
-                unbiased_factor = n / max(n - 1.0, 1.0)
-            if stats is not None:
-                unbiased = var.detach() * unbiased_factor
-                m = self.momentum
-                stats[self] = (
-                    (1.0 - m) * self.running_mean + m * mean.detach().mean(0),
-                    (1.0 - m) * self.running_var + m * unbiased.mean(0))
-            y = (xg - mean.view(bshape)) * torch.rsqrt(var.view(bshape)
-                                                       + self.eps)
-            y = y.reshape(xf.shape)
-        w = self.weight.to(x.dtype).to(acc).view(1, c, *spatial)
-        b = self.bias.to(x.dtype).to(acc).view(1, c, *spatial)
-        return (y * w + b).to(x.dtype)
+                    mean = xg.mean(dim=axes)  # [G, C]
+                    if two_pass:
+                        var = torch.square(xg - mean.view(bshape)).mean(
+                            dim=axes)
+                    else:
+                        ex2 = torch.square(xg).mean(dim=axes)
+                        var = torch.clamp(ex2 - torch.square(mean), min=0.0)
+                    n = xg[0].numel() / c
+                    unbiased_factor = n / max(n - 1.0, 1.0)
+                if stats is not None:
+                    unbiased = var.detach() * unbiased_factor
+                    m = self.momentum
+                    stats[self] = (
+                        (1.0 - m) * self.running_mean
+                        + m * mean.detach().mean(0),
+                        (1.0 - m) * self.running_var + m * unbiased.mean(0))
+                y = (xg - mean.view(bshape)) * torch.rsqrt(var.view(bshape)
+                                                           + self.eps)
+                y = y.reshape(xf.shape)
+            w = self.weight.to(x.dtype).to(acc).view(1, c, *spatial)
+            b = self.bias.to(x.dtype).to(acc).view(1, c, *spatial)
+            return (y * w + b).to(x.dtype)
 
 
 def lecun_normal_(weight: torch.Tensor, fan_in: int, generator=None) -> None:

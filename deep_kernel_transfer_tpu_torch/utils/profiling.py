@@ -1,41 +1,47 @@
-"""Tracing and timing helpers.
+"""Tracing helpers.
 
 Port of deep_kernel_transfer_tpu/utils/profiling.py:
 
-  * `annotate(name)`: a named span in torch.profiler traces
-    (record_function), and an NVTX range where CUDA is available;
+  * `annotate(name)`: the span `dkt.<name>` in torch.profiler traces
+    (record_function), opened only while a profiler runs;
   * `trace(log_dir)`: a torch.profiler trace of a block (CPU, and CUDA
     activity on a CUDA device) written for TensorBoard's profiler plugin;
-    `train --profile_dir` traces its first epoch with it;
-  * `sync(tree)`: wait for the device work behind the first tensor of a
-    tree and read one element of it back;
-  * `StepTimer`: wall-clock totals by phase, each phase ending with a
-    `sync` of what the phase hands it (PyTorch returns before the card is
-    done, so a phase without a sync measures the enqueue).
+    `train --profile_dir` traces its first epoch with it.
+
+The port's spans sit at its layer boundaries, nested as listed:
+
+    dkt.step       methods/base.py::train_step_body, the whole step
+      dkt.forward    the loss's forward (method.batch_loss_train)
+        dkt.trunk      methods/base.py::apply_trunk (train and eval mode)
+          dkt.batchnorm  models/backbones.py::EpisodicBatchNorm.forward
+        dkt.gp         methods/dkt.py::DKT._mll (fused MLL or ExactGP)
+      dkt.backward   zero_grad and loss.backward()
+      dkt.average    the episode-parallel all-reduce, where given
+      dkt.update     optimizer.step() and the BatchNorm merge
+    dkt.posterior  methods/dkt.py::DKT._logits_from_features (eval head)
+    dkt.draw       data/device_dataset.py::_draw (sampling and gather)
+      dkt.augment    the on-card crop-resize, jitter and flip
+
+A backward kernel is launched under `dkt.backward` by an autograd op that
+carries the `sequence_nr` of the forward op that made it, so a trace
+reader can charge it to that forward op's spans too.
 """
 from __future__ import annotations
 
 import contextlib
-import json
-import time
-from collections import defaultdict
-from typing import Any
 
 import torch
 
+SPAN_PREFIX = "dkt."
 
-@contextlib.contextmanager
+
 def annotate(name: str):
-    """A named span: record_function, plus an NVTX range on CUDA."""
-    nvtx = torch.cuda.is_available()
-    with torch.profiler.record_function(name):
-        if nvtx:
-            torch.cuda.nvtx.range_push(name)
-        try:
-            yield
-        finally:
-            if nvtx:
-                torch.cuda.nvtx.range_pop()
+    """The span `dkt.<name>` around a block while a profiler runs; a no-op
+    context otherwise (record_function costs several microseconds a call
+    even with no profiler running)."""
+    if not torch.autograd._profiler_enabled():
+        return contextlib.nullcontext()
+    return torch.profiler.record_function(SPAN_PREFIX + name)
 
 
 @contextlib.contextmanager
@@ -52,63 +58,3 @@ def trace(log_dir: str, device=None):
     with profile(activities=acts,
                  on_trace_ready=tensorboard_trace_handler(log_dir)) as prof:
         yield prof
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):  # in key order, as jax.tree.leaves
-        for k in sorted(tree):
-            yield from _leaves(tree[k])
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
-
-
-def sync(tree: Any) -> float:
-    """Wait for the device work that produced the first tensor of `tree`
-    and read its first element back (0.0 when there is no tensor): one
-    scalar crosses to the host, never the whole buffer."""
-    for x in _leaves(tree):
-        if isinstance(x, torch.Tensor):
-            if x.is_cuda:
-                torch.cuda.synchronize(x.device)
-            return float(x.reshape(-1)[0]) if x.numel() else 0.0
-    return 0.0
-
-
-class StepTimer:
-    """Wall-clock totals by phase.
-
-    with timer.phase("data"):            # host work
-        batch = next(loader)
-    with timer.phase("step") as ph:      # device work: hand the phase the
-        m = model.train_step(batch)      # step's OUTPUT to sync on
-        ph["sync"] = m
-    """
-
-    def __init__(self):
-        self.totals: dict[str, float] = defaultdict(float)
-        self.counts: dict[str, int] = defaultdict(int)
-
-    @contextlib.contextmanager
-    def phase(self, name: str):
-        t0 = time.perf_counter()
-        holder: dict[str, Any] = {}
-        try:
-            yield holder
-        finally:
-            if "sync" in holder:
-                sync(holder["sync"])
-            self.totals[name] += time.perf_counter() - t0
-            self.counts[name] += 1
-
-    def summary(self) -> dict[str, dict[str, float]]:
-        return {name: {"total_s": self.totals[name],
-                       "count": self.counts[name],
-                       "mean_ms": self.totals[name]
-                       / max(self.counts[name], 1) * 1e3}
-                for name in self.totals}
-
-    def report(self) -> str:
-        return json.dumps(self.summary(), sort_keys=True)
