@@ -14,15 +14,21 @@
    main paths' shapes, and times kernel, plain version and the stock
    library call with CUDA events, in turns: the fused MLL (with shared
    and with per-episode GP parameters, the latter at the digits
-   adaptation shape and the main one), and the three large-support-set
+   adaptation shape and the main one), the three large-support-set
    Cholesky kernels (blocked, left-looking, fused Gram with its tiled
-   form).
+   form), and the episodic BatchNorm(+ReLU) kernels at every trunk
+   BatchNorm shape of the two train cells (forward, statistics and
+   gradients against the plain version, two calls bit-equal; forward+
+   backward timed beside the plain version, the module's torch route and
+   the 10-bytes-an-element bound).
 5. Drives the main paths, each with the launch counts set to 0 just before
    and read just after:
    - DKT meta-training (Conv4, bncossim, 5-way 5-shot 15-query, 84x84x3
      uint8 episodes, 32 episodes a step, bf16 trunk) for a few steps
      through the fused-MLL kernel; checks the losses, the kernel's launch
-     count and the fused route against the plain route, runs the eval
+     count, that every 4-D BatchNorm took the episodic BatchNorm kernels
+     once each way with no layout copy, and the fused route against the
+     plain route, runs the eval
      head, times a train step on both GP routes in turns and prints a
      torch.profiler table of the step's device time by kernel;
    - the GP engine's memory regime: Cholesky logdets and their gradients
@@ -52,7 +58,8 @@
    - DKT on ResNet10 at 224 px (5-way 5-shot 16-query, N = 105, D = 512,
      8 episodes a step, bf16 trunk): the fused MLL at that shape against
      its plain version and timed with its library call; 5 train steps
-     with the kernel's launches counted, the fused route against the
+     with the kernels' launches counted (the BatchNorm's as on the main
+     path), the fused route against the
      plain one, the step's ms, episodes/s, peak memory and profile; then
      `train` and `test` through the CLI on a generated 224-px set;
    - episode parallelism at the main path's width (drive_parallel_path):
@@ -384,6 +391,147 @@ def check_fused_mll_per_episode(device) -> None:
         f"W={w}", profiled(step))
     print(f"adaptation-step MLL B={b} N={n}: host wall {wall_ms:.4f} ms a "
           f"step against {dev_ms:.4f} ms of kernel time", flush=True)
+
+
+# The train cells' trunk BatchNorms: (label, episodes, images, C, side,
+# ReLU fused, layers of this shape in the step). Conv4 at B = 32 and
+# ResNet10 at B = 16, 5w5s16q (105 images an episode).
+BN_SHAPES = (
+    ("Conv4 84 px", 32, 3360, 64, 84, True, 1),
+    ("Conv4 42 px", 32, 3360, 64, 42, True, 1),
+    ("Conv4 21 px", 32, 3360, 64, 21, True, 1),
+    ("Conv4 10 px", 32, 3360, 64, 10, True, 1),
+    ("ResNet10 stem", 16, 1680, 64, 112, False, 1),
+    ("ResNet10 stage 1 BN1", 16, 1680, 64, 56, True, 1),
+    ("ResNet10 stage 1 BN2", 16, 1680, 64, 56, False, 1),
+    ("ResNet10 stage 2 BN1", 16, 1680, 128, 28, True, 1),
+    ("ResNet10 stage 2 BN2, BNshortcut", 16, 1680, 128, 28, False, 2),
+    ("ResNet10 stage 3 BN1", 16, 1680, 256, 14, True, 1),
+    ("ResNet10 stage 3 BN2, BNshortcut", 16, 1680, 256, 14, False, 2),
+    ("ResNet10 stage 4 BN1", 16, 1680, 512, 7, True, 1),
+    ("ResNet10 stage 4 BN2, BNshortcut", 16, 1680, 512, 7, False, 2),
+)
+BN_LIMITS = {"y": 1e-2, "mean": 1e-4, "var": 1e-4, "dx": 1e-2, "dw": 1e-2,
+             "db": 1e-2}
+BN_BYTES = 10  # bf16: x in, y out; dy and x in, dx out
+
+
+def rel_norm(a, b) -> float:
+    a, b = a.double(), b.double()
+    return float(torch.linalg.vector_norm(a - b)
+                 / (torch.linalg.vector_norm(b) + 1e-30))
+
+
+def check_episodic_batchnorm(device) -> dict:
+    """The episodic BatchNorm kernels (ops/episodic_batchnorm.py) at every
+    trunk BatchNorm shape of the two train cells: forward (y and the
+    statistics) and backward (dx and the weight and bias gradients)
+    against the plain version, two calls on the same inputs bit-equal,
+    and forward+backward timed in turns with the plain version and the
+    module's torch route (the f32 chain the kernels replace, as
+    `library`), beside the bound of 10 bytes an element at 3.35 TB/s.
+    Prints each trunk's sum over its step's BatchNorms and returns the
+    Conv4 step's entry."""
+    from deep_kernel_transfer_tpu_torch.models.backbones import \
+        EpisodicBatchNorm
+    from deep_kernel_transfer_tpu_torch.ops import episodic_batchnorm as ebn
+
+    gen = torch.Generator(device=device).manual_seed(17)
+    bf16 = torch.bfloat16
+    sums = {}
+    worst = 0.0
+    for label, groups, images, c, px, relu, layers in BN_SHAPES:
+        shape = (images, px, px, c)
+        x = (torch.randn(shape, generator=gen, device=device) * 1.5
+             + 0.3).to(bf16).permute(0, 3, 1, 2)
+        dy = torch.randn(shape, generator=gen, device=device).to(
+            bf16).permute(0, 3, 1, 2)
+        bn = EpisodicBatchNorm(c).to(device)
+        with torch.no_grad():
+            bn.weight.copy_(1.0 + 0.3 * torch.randn(c, generator=gen,
+                                                    device=device))
+            bn.bias.copy_(0.2 * torch.randn(c, generator=gen, device=device))
+        w, b, eps = bn.weight.detach(), bn.bias.detach(), bn.eps
+
+        def kernel():
+            y, st = ebn._forward_cuda(x, w, b, groups, eps, relu)
+            dx, sm = ebn._backward_cuda(dy, x, st, groups, relu)
+            return y, st, dx, sm
+
+        def plain():
+            y, st = ebn._forward_plain(x, w, b, groups, eps, relu)
+            return (y, st) + ebn._backward_plain(dy, x, w, b, st, groups,
+                                                 eps, relu)
+
+        xr = x.detach().requires_grad_(True)
+
+        def torch_route():
+            """The module's torch ops, the kernels' route refused."""
+            supports, ebn.supports = ebn.supports, lambda t: False
+            try:
+                y = bn(xr, True, groups, None, relu=relu)
+            finally:
+                ebn.supports = supports
+            torch.autograd.backward(y, dy)
+
+        before = ebn.episodic_batchnorm.launches
+        got, again = kernel(), kernel()
+        torch.cuda.synchronize()
+        if ebn.episodic_batchnorm.launches != before + 4:
+            raise AssertionError("episodic_batchnorm did not launch")
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        y, st, dx, sm = got
+        y_p, st_p, dx_p, dw_p, db_p = plain()
+        errs = {"y": rel_err(y.float(), y_p.float()),
+                "mean": rel_err(st[0], st_p[0]),
+                "var": rel_err(st[1], st_p[1]),
+                "dx": rel_norm(dx, dx_p),
+                "dw": rel_norm(ebn._param_grad(sm[1], w), dw_p),
+                "db": rel_norm(ebn._param_grad(sm[0], b), db_p)}
+        del got, again, y, st, dx, sm, y_p, st_p, dx_p
+        check(f"episodic_batchnorm {label} ({images}x{c}x{px}x{px}, G="
+              f"{groups}, relu {relu}), bit-equal twice {same}", errs,
+              BN_LIMITS)
+        if not same:
+            raise AssertionError(f"episodic_batchnorm {label}: two calls "
+                                 f"on the same inputs differ")
+        worst = max(worst, errs["y"])
+        times = ms_in_turns({"kernel": kernel, "plain": plain,
+                             "library": torch_route},
+                            rounds=3, iters=3, warmup=1)
+        bound = images * c * px * px * BN_BYTES / PEAK_BYTES * 1e3
+        print(f"episodic_batchnorm {label}, forward+backward, median "
+              f"(min-max) of turns: " + ", ".join(
+                  f"{k} {v[0]:.4f} ({v[1]:.4f}-{v[2]:.4f}) ms"
+                  for k, v in times.items())
+              + f" (library: the module's torch route), bound {bound:.4f} "
+              f"ms, kernel at {100 * bound / times['kernel'][0]:.1f}% of it",
+              flush=True)
+        trunk = label.split()[0]
+        acc = sums.setdefault(trunk, {"kernel": 0.0, "plain": 0.0,
+                                      "library": 0.0, "bound": 0.0})
+        for k in ("kernel", "plain", "library"):
+            acc[k] += layers * times[k][0]
+        acc["bound"] += layers * bound
+        del x, dy, xr, bn
+        torch.cuda.empty_cache()
+    for trunk, acc in sums.items():
+        print(f"episodic_batchnorm: the {trunk} step's BatchNorms, forward+"
+              f"backward: kernel {acc['kernel']:.3f} ms, plain "
+              f"{acc['plain']:.3f} ms, torch route {acc['library']:.3f} ms, "
+              f"bound {acc['bound']:.3f} ms (kernel at "
+              f"{100 * acc['bound'] / acc['kernel']:.1f}%)", flush=True)
+    acc = sums["Conv4"]
+    return {"name": "episodic_batchnorm", "route": "cuda",
+            "source": "deep_kernel_transfer_tpu_torch/csrc/"
+                      "episodic_batchnorm.cu",
+            "replaces": "none: XLA fuses the JAX BatchNorm "
+                        "(models/backbones.py:120-139)",
+            "launches": None, "max_abs_err": worst, "ms": acc["kernel"],
+            "plain_ms": acc["plain"], "bound_ms": acc["bound"],
+            "bound_by": "bytes", "library_ms": acc["library"],
+            "resnet10_ms": sums["ResNet10"]["kernel"],
+            "resnet10_bound_ms": sums["ResNet10"]["bound"]}
 
 
 def spd_matrix(b: int, n: int, device) -> torch.Tensor:
@@ -778,6 +926,31 @@ def drive_gp_memory_path(device) -> dict:
     return launches
 
 
+def check_batchnorm_route(label: str, steps: int, layers: int) -> int:
+    """Every 4-D bf16 training BatchNorm of `steps` train steps took the
+    kernels: one forward and one backward entry call a layer a step, none
+    left to torch, no layout copy (counted from 0 by the caller). Returns
+    the launches."""
+    from deep_kernel_transfer_tpu_torch.ops.episodic_batchnorm import \
+        episodic_batchnorm as ebn
+
+    got = (ebn.launches, ebn.torch_route, ebn.copies)
+    print(f"{label}: episodic_batchnorm launches {got[0]} (want {steps} "
+          f"steps x {layers} layers x 2), torch route {got[1]}, layout "
+          f"copies {got[2]}", flush=True)
+    if got != (2 * steps * layers, 0, 0):
+        raise AssertionError(f"{label}: the trunk's BatchNorms did not all "
+                             f"take the kernels once each way: {got}")
+    return got[0]
+
+
+def reset_batchnorm_counts() -> None:
+    from deep_kernel_transfer_tpu_torch.ops.episodic_batchnorm import \
+        episodic_batchnorm as ebn
+
+    ebn.launches = ebn.torch_route = ebn.copies = 0
+
+
 def drive_main_path(device, card: str) -> tuple[dict, float]:
     """5 DKT meta-training steps at full width through the fused kernel.
     Returns each kernel's launch count over those steps and the fused
@@ -804,9 +977,11 @@ def drive_main_path(device, card: str) -> tuple[dict, float]:
         plain_loss = plain.batch_loss_train(batches[0])[0].item()
 
     fused_linear_mll.launches = 0
+    reset_batchnorm_counts()
     losses = [model.train_step(batches[i % 2])["loss"] for i in range(5)]
     torch.cuda.synchronize()
-    launches = {"fused_linear_mll": fused_linear_mll.launches}
+    launches = {"fused_linear_mll": fused_linear_mll.launches,
+                "episodic_batchnorm": check_batchnorm_route("main path", 5, 4)}
     losses = [float(v) for v in losses]
     print(f"main path: 5 train steps (Conv4, bncossim, {MAIN_WAY}w"
           f"{MAIN_SHOT}s{MAIN_QUERY}q, {MAIN_PX} px, B={MAIN_B}, bf16 trunk)"
@@ -1433,9 +1608,11 @@ def drive_resnet_path(device, card: str) -> dict:
         plain_loss = plain.batch_loss_train(batches[0])[0].item()
     del plain
     fused_linear_mll.launches = 0
+    reset_batchnorm_counts()
     losses = [model.train_step(batches[i % 2])["loss"] for i in range(5)]
     torch.cuda.synchronize()
     launched = fused_linear_mll.launches
+    bn_launched = check_batchnorm_route("ResNet10 path", 5, 12)
     losses = [float(v) for v in losses]
     print(f"ResNet10 path: 5 train steps (bncossim, {MAIN_WAY}w{MAIN_SHOT}s"
           f"{RES_QUERY}q, {RES_PX} px, B={RES_B}, bf16 trunk), losses "
@@ -1493,7 +1670,8 @@ def drive_resnet_path(device, card: str) -> dict:
         raise AssertionError("the ResNet10 CLI run did not train 3 batches")
     if not 0.0 <= acc <= 100.0:
         raise AssertionError(f"ResNet10 CLI accuracy {acc}")
-    return {"fused_linear_mll": launched + cli_launches}
+    return {"fused_linear_mll": launched + cli_launches,
+            "episodic_batchnorm": bn_launched}
 
 
 # -- the comparison methods through the CLIs ----------------------------------
@@ -2922,7 +3100,8 @@ def main() -> int:
     from deep_kernel_transfer_tpu_torch.ops import build
 
     t0 = time.perf_counter()
-    built = build.build_all(["fused_mll", "blocked_cholesky", "hbm_cholesky"])
+    built = build.build_all(["fused_mll", "blocked_cholesky", "hbm_cholesky",
+                             "episodic_batchnorm"])
     print(f"built {', '.join(built)} in {time.perf_counter() - t0:.1f} s",
           flush=True)
     for name, (_, log) in built.items():
@@ -2945,6 +3124,8 @@ def main() -> int:
                          check_fused_gram_cholesky_tiled):
         entry = check_kernel(device)
         kernels[entry["name"]] = entry
+    torch.cuda.empty_cache()
+    kernels["episodic_batchnorm"] = check_episodic_batchnorm(device)
     torch.cuda.empty_cache()
 
     # 5. the main paths: DKT meta-training, the GP memory regime, the CLIs,

@@ -56,7 +56,7 @@ class RelationConvBlock(nn.Module):
         self.BN = EpisodicBatchNorm(out_dim)
 
     def forward(self, x, train=True, ep_groups=1, stats=None):
-        x = F.relu(self.BN(self.C(x), train, ep_groups, stats))
+        x = self.BN(self.C(x), train, ep_groups, stats, relu=True)
         if x.shape[-2] >= 2 and x.shape[-1] >= 2:
             x = F.max_pool2d(x, 2, 2)
         return x

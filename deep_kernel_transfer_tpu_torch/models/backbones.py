@@ -39,6 +39,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..gp.kernels import full_f32
+from ..ops import episodic_batchnorm as ebn
 from ..utils.profiling import annotate
 
 # ImageNet statistics (reference data/datamgr.py:15)
@@ -92,7 +93,14 @@ class EpisodicBatchNorm(nn.Module):
     lower-precision one the one-pass E[x^2] - m^2 (JAX backbones.py
     :125-139). Where `stats` is a BatchStats with a `batch_sum` and
     ep_groups is 1, the statistics are those of the whole batch that the
-    ranks split between them."""
+    ranks split between them.
+
+    `relu` applies a ReLU to the output. A bf16 4-D CUDA input in training
+    mode, outside the split-batch case, takes the fused kernels of
+    ops/episodic_batchnorm.py (the normalisation and the ReLU in one pass
+    each way); every other input takes the torch ops below, and a bf16 4-D
+    training input among them is counted in
+    `episodic_batchnorm.torch_route`."""
 
     momentum = 0.1
     eps = 1e-5
@@ -112,8 +120,20 @@ class EpisodicBatchNorm(nn.Module):
         self.running_var.fill_(1.0)
 
     def forward(self, x: torch.Tensor, train: bool = True, ep_groups: int = 1,
-                stats: dict | None = None) -> torch.Tensor:
+                stats: dict | None = None, relu: bool = False) -> torch.Tensor:
         with annotate("batchnorm"):
+            if train and x.dim() == 4 and x.dtype == torch.bfloat16:
+                split = (getattr(stats, "batch_sum", None) is not None
+                         and ep_groups == 1)
+                if x.is_cuda and not split and ebn.supports(x):
+                    y, new_mean, new_var = ebn.episodic_batchnorm(
+                        x, self.weight, self.bias, self.running_mean,
+                        self.running_var, ep_groups, self.eps, self.momentum,
+                        relu)
+                    if stats is not None:
+                        stats[self] = (new_mean, new_var)
+                    return y
+                ebn.episodic_batchnorm.torch_route += 1
             c = x.shape[1]
             acc = torch.promote_types(x.dtype, torch.float32)
             two_pass = x.dtype == acc
@@ -156,18 +176,16 @@ class EpisodicBatchNorm(nn.Module):
                     n = xg[0].numel() / c
                     unbiased_factor = n / max(n - 1.0, 1.0)
                 if stats is not None:
-                    unbiased = var.detach() * unbiased_factor
-                    m = self.momentum
-                    stats[self] = (
-                        (1.0 - m) * self.running_mean
-                        + m * mean.detach().mean(0),
-                        (1.0 - m) * self.running_var + m * unbiased.mean(0))
+                    stats[self] = ebn.running_averages(
+                        self.running_mean, self.running_var, mean.detach(),
+                        var.detach(), unbiased_factor, self.momentum)
                 y = (xg - mean.view(bshape)) * torch.rsqrt(var.view(bshape)
                                                            + self.eps)
                 y = y.reshape(xf.shape)
             w = self.weight.to(x.dtype).to(acc).view(1, c, *spatial)
             b = self.bias.to(x.dtype).to(acc).view(1, c, *spatial)
-            return (y * w + b).to(x.dtype)
+            y = (y * w + b).to(x.dtype)
+            return F.relu(y) if relu else y
 
 
 def lecun_normal_(weight: torch.Tensor, fan_in: int, generator=None) -> None:
@@ -201,7 +219,7 @@ class ConvBlock(nn.Module):
         self.pool = pool
 
     def forward(self, x, train=True, ep_groups=1, stats=None):
-        x = F.relu(self.BN(self.C(x), train, ep_groups, stats))
+        x = self.BN(self.C(x), train, ep_groups, stats, relu=True)
         if self.pool:
             x = F.max_pool2d(x, 2, 2)
         return x
@@ -321,7 +339,7 @@ class SimpleBlock(nn.Module):
             self.shortcut = None
 
     def forward(self, x, train=True, ep_groups=1, stats=None):
-        h = F.relu(self.BN1(self.C1(x), train, ep_groups, stats))
+        h = self.BN1(self.C1(x), train, ep_groups, stats, relu=True)
         h = self.BN2(self.C2(h), train, ep_groups, stats)
         s = x if self.shortcut is None else self.BNshortcut(
             self.shortcut(x), train, ep_groups, stats)
@@ -347,8 +365,8 @@ class BottleneckBlock(nn.Module):
                          if in_dim != out_dim else None)
 
     def forward(self, x, train=True, ep_groups=1, stats=None):
-        h = F.relu(self.BN1(self.C1(x), train, ep_groups, stats))
-        h = F.relu(self.BN2(self.C2(h), train, ep_groups, stats))
+        h = self.BN1(self.C1(x), train, ep_groups, stats, relu=True)
+        h = self.BN2(self.C2(h), train, ep_groups, stats, relu=True)
         h = self.BN3(self.C3(h), train, ep_groups, stats)
         s = x if self.shortcut is None else self.shortcut(x)
         return F.relu(h + s)

@@ -1,0 +1,275 @@
+"""Episodic BatchNorm (+ReLU) in training mode for bf16 4-D activations:
+`csrc/episodic_batchnorm.cu` on the card, the same algorithm in torch ops
+(`_forward_plain`, `_backward_plain`) on the CPU.
+
+Replaces no Pallas kernel: the JAX package leaves its BatchNorm
+(deep_kernel_transfer_tpu/models/backbones.py:120-139) to XLA's fusion.
+x [G n, C, H, W] is G episodes of n images; each episode's statistics are
+its own. In channels-last memory an episode is a dense [P, C] block, P = n
+H W, which the kernels stream with 16-byte accesses along C:
+
+  forward   mean, var = sum x / P, max(sum x^2 / P - mean^2, 0)  (f32)
+            scale = bf16(w) rsqrt(var + eps), shift = bf16(b) - mean scale
+            y = bf16(x scale + shift), then max(y, 0) with `relu`
+  backward  dy' = dy [y > 0] (with `relu`), xh = (x - mean) rsqrt(var + eps)
+            dx = scale (dy' - sum dy' / P - xh sum dy' xh / P)
+            dw, db = bf16(sum over episodes of sum dy' xh, sum dy')
+
+The variance is the one-pass law of the JAX package and of the port's bf16
+torch path; its derivative is the two-pass one's. Sums are f32 partials of
+the row splits that `plan` gives, added in a fixed order. Autograd saves the
+bf16 x and the [5, G, C] statistics (mean, var, rstd, scale, shift); the
+ReLU mask is recomputed from them by the forward's arithmetic. Under
+create_graph the backward runs `_backward_plain` with grad mode on, which
+recomputes the statistics from x, so higher derivatives follow.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from . import build
+
+VEC = 8  # bf16 channels in one 16-byte access
+THREADS = 256  # a streaming CTA's threads, at most
+MAX_C = VEC * THREADS
+# The row splits of an episode: enough CTAs for a few waves on the card's
+# 132 SMs, none with fewer than MIN_ELEMENTS elements, at most MAX_SPLITS.
+TARGET_CTAS = 2048
+MIN_ELEMENTS = 16384
+MAX_SPLITS = 512
+
+
+def supports(x: torch.Tensor) -> bool:
+    """Whether the kernels take x: bf16, 4-D, C a multiple of 8 up to
+    2048."""
+    return (x.dim() == 4 and x.dtype == torch.bfloat16
+            and x.shape[1] % VEC == 0 and VEC <= x.shape[1] <= MAX_C
+            and x.numel() > 0)
+
+
+def plan(groups: int, rows: int, c: int) -> tuple[int, int]:
+    """(splits, rows a split) of an episode's `rows` rows of c channels:
+    rows a split a multiple of the CTA's rows at once (256 / (c / 8))."""
+    tile_rows = THREADS // (c // VEC)
+    splits = max(1, min(-(-rows * c // MIN_ELEMENTS),
+                        -(-TARGET_CTAS // groups), MAX_SPLITS))
+    per_split = -(-rows // splits)
+    per_split = -(-per_split // tile_rows) * tile_rows
+    return -(-rows // per_split), per_split
+
+
+def _grouped(t: torch.Tensor, groups: int) -> torch.Tensor:
+    """[G n, C, H, W] -> [G, n H W, C] (a view of channels-last memory)."""
+    return t.permute(0, 2, 3, 1).reshape(groups, -1, t.shape[1])
+
+
+def _ungrouped(v: torch.Tensor, shape) -> torch.Tensor:
+    """[G, n H W, C] -> [G n, C, H, W] in channels-last memory."""
+    n, c, h, w = shape
+    return v.reshape(n, h, w, c).permute(0, 3, 1, 2)
+
+
+def _split_sums(v: torch.Tensor) -> torch.Tensor:
+    """[G, P, C] -> [G, C]: f32 sums of the kernels' row splits, added in
+    split order."""
+    groups, rows, c = v.shape
+    splits, per_split = plan(groups, rows, c)
+    v = F.pad(v, (0, 0, 0, splits * per_split - rows))
+    return v.reshape(groups, splits, per_split, c).sum(2).sum(1)
+
+
+def statistics(xg: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    """[5, G, C] = mean, var, rstd, scale, shift of f32 xg [G, P, C]."""
+    rows = xg.shape[1]
+    mean = _split_sums(xg) / rows
+    var = torch.clamp(_split_sums(xg * xg) / rows - mean * mean, min=0.0)
+    rstd = torch.rsqrt(var + eps)
+    scale = weight.to(torch.bfloat16).float() * rstd
+    shift = bias.to(torch.bfloat16).float() - mean * scale
+    return torch.stack([mean, var, rstd, scale, shift])
+
+
+def _affine(xg, stats):
+    """The forward's output before the ReLU, f32 [G, P, C]."""
+    return xg * stats[3][:, None] + stats[4][:, None]
+
+
+def _forward_plain(x, weight, bias, groups: int, eps: float, relu: bool):
+    """(y, stats) with torch ops."""
+    xg = _grouped(x, groups).float()
+    stats = statistics(xg, weight, bias, eps)
+    y = _affine(xg, stats)
+    if relu:
+        y = torch.clamp_min(y, 0.0)
+    return _ungrouped(y.to(torch.bfloat16), x.shape), stats
+
+
+def _backward_plain(dy, x, weight, bias, stats, groups: int, eps: float,
+                    relu: bool):
+    """(dx, dw, db) with torch ops; stats None recomputes them from x (the
+    differentiable form under create_graph)."""
+    xg = _grouped(x, groups).float()
+    rows = xg.shape[1]
+    if stats is None:
+        stats = statistics(xg, weight, bias, eps)
+    d = _grouped(dy, groups).float()
+    if relu:
+        d = d * (_affine(xg, stats).to(torch.bfloat16) > 0)
+    mean, rstd, scale = stats[0][:, None], stats[2][:, None], stats[3][:, None]
+    xh = (xg - mean) * rstd
+    sdy, sdyx = _split_sums(d), _split_sums(d * xh)
+    dx = scale * (d - sdy[:, None] / rows - xh * sdyx[:, None] / rows)
+    return (_ungrouped(dx.to(torch.bfloat16), x.shape),
+            _param_grad(sdyx, weight), _param_grad(sdy, bias))
+
+
+def _param_grad(per_episode: torch.Tensor, param: torch.Tensor):
+    """The sum over episodes, rounded through bf16 as autograd's casts of
+    the weight (f32 -> bf16 -> f32) round it."""
+    return per_episode.sum(0).to(torch.bfloat16).to(param.dtype)
+
+
+def _channels_last(t: torch.Tensor) -> torch.Tensor:
+    """t itself where its memory is channels-last and 16-byte aligned, else
+    a channels-last copy (counted)."""
+    if (t.is_contiguous(memory_format=torch.channels_last)
+            and t.data_ptr() % 16 == 0):
+        return t
+    episodic_batchnorm.copies += 1
+    return t.contiguous(memory_format=torch.channels_last)
+
+
+def _ctypes(fn, n_ptr: int, ints: list):
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + ints + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _shape(x, groups):
+    n, c, h, w = x.shape
+    rows = n // groups * h * w
+    return c, rows, plan(groups, rows, c)
+
+
+def _forward_cuda(x, weight, bias, groups: int, eps: float, relu: bool):
+    c, rows, (splits, per_split) = _shape(x, groups)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    weight = weight.detach().to(torch.float32).contiguous()
+    bias = bias.detach().to(torch.float32).contiguous()
+    y = torch.empty_like(x, memory_format=torch.channels_last)
+    part = torch.empty((groups, splits, 2, c), **f32)
+    stats = torch.empty((5, groups, c), **f32)
+    fn = _ctypes(build.load("episodic_batchnorm").episodic_bn_forward, 6,
+                 [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                  ctypes.c_longlong, ctypes.c_float, ctypes.c_int])
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), y.data_ptr(), weight.data_ptr(),
+                 bias.data_ptr(), part.data_ptr(), stats.data_ptr(), groups,
+                 rows, c, splits, per_split, float(eps), int(relu),
+                 torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"episodic_bn_forward launch failed: "
+                           f"{build.error_name(err)}")
+    episodic_batchnorm.launches += 1
+    return y, stats
+
+
+def _backward_cuda(dy, x, stats, groups: int, relu: bool):
+    c, rows, (splits, per_split) = _shape(x, groups)
+    dy = _channels_last(dy)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x, memory_format=torch.channels_last)
+    part = torch.empty((groups, splits, 2, c), **f32)
+    sums = torch.empty((2, groups, c), **f32)
+    fn = _ctypes(build.load("episodic_batchnorm").episodic_bn_backward, 6,
+                 [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                  ctypes.c_longlong, ctypes.c_int])
+    with torch.cuda.device(x.device):
+        err = fn(dy.data_ptr(), x.data_ptr(), dx.data_ptr(), stats.data_ptr(),
+                 part.data_ptr(), sums.data_ptr(), groups, rows, c, splits,
+                 per_split, int(relu), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"episodic_bn_backward launch failed: "
+                           f"{build.error_name(err)}")
+    episodic_batchnorm.launches += 1
+    return dx, sums
+
+
+def running_averages(running_mean, running_var, mean, var, unbiased_factor,
+                     momentum: float):
+    """The new running averages, new = (1 - m) old + m batch, from the
+    batch mean and biased var [G, C]: each episode's update with the
+    unbiased variance, averaged over the episodes."""
+    unbiased = var * unbiased_factor
+    m = momentum
+    return ((1.0 - m) * running_mean + m * mean.mean(0),
+            (1.0 - m) * running_var + m * unbiased.mean(0))
+
+
+class _EpisodicBatchNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, bias, running_mean, running_var, groups, eps,
+                momentum, relu):
+        fwd = _forward_cuda if x.is_cuda else _forward_plain
+        y, stats = fwd(x, weight, bias, groups, eps, relu)
+        # Here the small ops record the Function's own autograd sequence
+        # number; after it, they would record the next op's, and a trace
+        # reader would charge that op's backward to the BatchNorm.
+        rows = x.numel() / (x.shape[1] * groups)
+        new_mean, new_var = running_averages(
+            running_mean, running_var, stats[0], stats[1],
+            rows / max(rows - 1.0, 1.0), momentum)
+        ctx.save_for_backward(x, weight, bias, stats)
+        ctx.args = (groups, eps, relu)
+        ctx.mark_non_differentiable(new_mean, new_var)
+        return y, new_mean, new_var
+
+    @staticmethod
+    def backward(ctx, dy, *_):
+        x, weight, bias, stats = ctx.saved_tensors
+        groups, eps, relu = ctx.args
+        if torch.is_grad_enabled():  # create_graph: a differentiable form
+            dx, dw, db = _backward_plain(dy, x, weight, bias, None, groups,
+                                         eps, relu)
+        elif dy.is_cuda:
+            dx, sums = _backward_cuda(dy, x, stats, groups, relu)
+            dw, db = _param_grad(sums[1], weight), _param_grad(sums[0], bias)
+        else:
+            dx, dw, db = _backward_plain(dy, x, weight, bias, stats, groups,
+                                         eps, relu)
+        return (dx, dw, db) + (None,) * 6
+
+
+def episodic_batchnorm(x: torch.Tensor, weight: torch.Tensor,
+                       bias: torch.Tensor, running_mean: torch.Tensor,
+                       running_var: torch.Tensor, groups: int,
+                       eps: float = 1e-5, momentum: float = 0.1,
+                       relu: bool = False):
+    """Training-mode BatchNorm of bf16 x [G n, C, H, W] with statistics per
+    episode (G = `groups`), then a ReLU where `relu`: (y [G n, C, H, W]
+    bf16 in channels-last memory, the new running mean and var [C], f32
+    and without gradients, by `running_averages`). weight and bias [C] are
+    the f32 master parameters; the normalisation uses them rounded to
+    bf16. CUDA tensors launch the kernels (a non-channels-last x is copied
+    to channels-last first); CPU tensors take the plain torch version."""
+    if not supports(x):
+        raise ValueError(f"episodic_batchnorm takes bf16 [N, C, H, W] with C "
+                         f"a multiple of {VEC} up to {MAX_C}; got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    if x.shape[0] % groups:
+        raise ValueError(f"batch {x.shape[0]} is not a multiple of "
+                         f"ep_groups={groups}")
+    if x.is_cuda:
+        x = _channels_last(x)
+    return _EpisodicBatchNorm.apply(x, weight, bias, running_mean,
+                                    running_var, int(groups), float(eps),
+                                    float(momentum), bool(relu))
+
+
+episodic_batchnorm.launches = 0  # kernel entry calls, forward and backward
+episodic_batchnorm.torch_route = 0  # bf16 4-D training calls left to torch
+episodic_batchnorm.copies = 0  # layout copies of an input or a gradient

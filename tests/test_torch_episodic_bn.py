@@ -1,0 +1,188 @@
+"""The episodic BatchNorm op (ops/episodic_batchnorm.py) against the
+module's torch route (models/backbones.py::EpisodicBatchNorm) on bf16
+inputs.
+
+The op's CPU route is its plain version, which repeats the kernels'
+algorithm in torch ops (split partials, the fixed-order finalize, the
+scale/shift apply, the closed-form backward); the kernels themselves run
+only on the card (chip_smoke.py::check_episodic_batchnorm). The two
+sides round differently in f32 before the one bf16 rounding (x scale +
+shift against (x - mean) rstd w + b), so outputs agree to a bf16 ulp and
+gradients to a relative norm of 1e-2: a flipped ReLU mask at an output
+that lies within f32 round-off of 0 moves one element of dx.
+"""
+from __future__ import annotations
+
+import pytest
+import torch
+
+from deep_kernel_transfer_tpu_torch.models.backbones import (
+    BatchStats, EpisodicBatchNorm)
+from deep_kernel_transfer_tpu_torch.ops import episodic_batchnorm as ebn
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _inputs(c: int, groups: int, channels_last: bool, seed: int = 0):
+    """bf16 x [groups * 3, c, 5, 6] with a per-channel offset and scale, a
+    BatchNorm with drawn weight, bias and running statistics, and a
+    bf16 upstream gradient."""
+    g = torch.Generator().manual_seed(seed + c + groups)
+    n = groups * 3
+    x = (torch.randn(n, c, 5, 6, generator=g) * (0.5 + torch.rand(
+        1, c, 1, 1, generator=g)) + torch.randn(1, c, 1, 1, generator=g))
+    x = x.to(torch.bfloat16)
+    if channels_last:
+        x = x.contiguous(memory_format=torch.channels_last)
+    bn = EpisodicBatchNorm(c)
+    with torch.no_grad():
+        bn.weight.copy_(1.0 + 0.3 * torch.randn(c, generator=g))
+        bn.bias.copy_(0.2 * torch.randn(c, generator=g))
+        bn.running_mean.copy_(0.1 * torch.randn(c, generator=g))
+        bn.running_var.copy_(1.0 + 0.1 * torch.rand(c, generator=g))
+    dy = torch.randn(x.shape, generator=g).to(torch.bfloat16)
+    return x, bn, dy
+
+
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double(), b.double()
+    return float(torch.linalg.vector_norm(a - b)
+                 / torch.linalg.vector_norm(b))
+
+
+def _torch_route(bn, x, groups, relu, dy):
+    """The module's torch route: output, x/weight/bias gradients, the new
+    running statistics."""
+    x = x.detach().requires_grad_(True)
+    stats = BatchStats()
+    before = ebn.episodic_batchnorm.torch_route
+    y = bn(x, True, groups, stats, relu=relu)
+    assert ebn.episodic_batchnorm.torch_route == before + 1
+    dx, dw, db = torch.autograd.grad(y, (x, bn.weight, bn.bias), dy)
+    return y.detach(), dx, dw, db, stats[bn]
+
+
+def _op(bn, x, groups, relu, dy):
+    """The op's CPU route (the plain version): output, gradients, the new
+    running statistics."""
+    x = x.detach().requires_grad_(True)
+    y, new_mean, new_var = ebn.episodic_batchnorm(
+        x, bn.weight, bn.bias, bn.running_mean, bn.running_var, groups,
+        bn.eps, bn.momentum, relu)
+    dx, dw, db = torch.autograd.grad(y, (x, bn.weight, bn.bias), dy)
+    return y.detach(), dx, dw, db, (new_mean, new_var)
+
+
+@pytest.mark.parametrize("c", [64, 512])
+@pytest.mark.parametrize("channels_last", [True, False])
+@pytest.mark.parametrize("groups", [1, 4])
+@pytest.mark.parametrize("relu", [False, True])
+def test_plain_op_matches_the_torch_route(c, channels_last, groups, relu):
+    x, bn, dy = _inputs(c, groups, channels_last)
+    want = _torch_route(bn, x, groups, relu, dy)
+    got = _op(bn, x, groups, relu, dy)
+    y_w, dx_w, dw_w, db_w, (rm_w, rv_w) = want
+    y, dx, dw, db, (rm, rv) = got
+    assert y.dtype == dx.dtype == torch.bfloat16
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    torch.testing.assert_close(y.float(), y_w.float(), rtol=2 ** -7,
+                               atol=1e-5)
+    if relu:
+        assert bool((y >= 0).all())
+    assert _rel(dx, dx_w) < 1e-2
+    assert _rel(dw, dw_w) < 1e-2 and _rel(db, db_w) < 1e-2
+    torch.testing.assert_close(rm, rm_w, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(rv, rv_w, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("relu", [False, True])
+def test_double_backward_follows_the_torch_route(relu):
+    """create_graph: the op's backward runs the differentiable form, whose
+    second derivatives match autograd's through the torch route."""
+    x, bn, dy = _inputs(64, 2, True, seed=7)
+    probe = torch.randn(x.shape, generator=torch.Generator().manual_seed(3))
+
+    def second(fn):
+        xr = x.detach().float().requires_grad_(True)
+        y = fn(xr.to(torch.bfloat16))
+        (gx,) = torch.autograd.grad(y, xr, dy, create_graph=True)
+        return torch.autograd.grad((gx.float() * probe).sum(),
+                                   (xr, bn.weight))
+
+    want = second(lambda v: bn(v, True, 2, None, relu=relu))
+    got = second(lambda v: ebn.episodic_batchnorm(
+        v, bn.weight, bn.bias, bn.running_mean, bn.running_var, 2, bn.eps,
+        bn.momentum, relu)[0])
+    for a, b in zip(got, want):
+        assert bool(torch.isfinite(a).all())
+        assert _rel(a, b) < 2e-2
+
+
+def test_split_sums_follow_the_plan():
+    """The plain sums take the kernels' splits: every split but the last
+    full, rows a split a multiple of the CTA's rows at once."""
+    for groups, rows, c in [(32, 740880, 64), (16, 5145, 512), (1, 7, 8),
+                            (4, 30, 2048)]:
+        splits, per_split = ebn.plan(groups, rows, c)
+        assert 1 <= splits <= ebn.MAX_SPLITS
+        assert per_split % (ebn.THREADS // (c // ebn.VEC)) == 0
+        assert (splits - 1) * per_split < rows <= splits * per_split
+    v = torch.randn(3, 70001, 8, dtype=torch.float64)
+    torch.testing.assert_close(ebn._split_sums(v), v.sum(1))
+
+
+def test_routes_and_counters_on_the_cpu():
+    """A CPU tensor never takes the kernels: a bf16 4-D training call is
+    counted as the torch route; float32, eval mode and 2-D inputs are not
+    counted. The op refuses what the kernels do not take."""
+    bn = EpisodicBatchNorm(16)
+    x = torch.randn(4, 16, 3, 3)
+    before = (ebn.episodic_batchnorm.torch_route,
+              ebn.episodic_batchnorm.launches)
+    bn(x, True, 2)
+    bn(x.to(torch.bfloat16), False, 1)
+    bn(torch.randn(4, 16).to(torch.bfloat16), True, 2)
+    assert ebn.episodic_batchnorm.torch_route == before[0]
+    bn(x.to(torch.bfloat16), True, 2, relu=True)
+    assert ebn.episodic_batchnorm.torch_route == before[0] + 1
+    assert ebn.episodic_batchnorm.launches == before[1]
+    assert ebn.supports(x.to(torch.bfloat16))
+    running = (bn.running_mean, bn.running_var)
+    for bad in (x, torch.randn(4, 12, 3, 3).to(torch.bfloat16),
+                torch.randn(4, 16).to(torch.bfloat16)):
+        assert not ebn.supports(bad)
+        with pytest.raises(ValueError):
+            ebn.episodic_batchnorm(bad, bn.weight, bn.bias, *running, 2)
+    with pytest.raises(ValueError):
+        ebn.episodic_batchnorm(x.to(torch.bfloat16), bn.weight, bn.bias,
+                               *running, 3)
+
+
+@pytest.mark.parametrize("config,traffic,per_image", [
+    ("dkt_conv4_miniimagenet", "train_5w5s16q_b32", 599104),
+    ("dkt_resnet10_cub", "train_5w5s16q_b16", 1731072)])
+def test_batchnorm_roofline_reader(config, traffic, per_image):
+    """dkt_bench's batchnorm_roofline.train: images x BatchNorm elements an
+    image x 10 bytes at 3.35 TB/s over the episodic_bn_ kernels' device
+    time a step; None where no such kernel ran (the port before them)."""
+    from dkt_bench.registry import Registry
+    from dkt_bench.trace import Record
+
+    reg = Registry()
+    cfg, tr = reg.config(config), reg.traffic(traffic)
+    read = reg.reader("batchnorm_roofline.train")
+    kernels = [("void (anonymous namespace)::episodic_bn_stats(...)", 4e-3,
+                ()), ("void (anonymous namespace)::episodic_bn_grad_apply"
+                      "<true>(...)", 6e-3, ()), ("gram_kernel", 1.0, ())]
+    r = Record("train", cfg, tr, 2, 1.0, 0.9, kernels)
+    images = tr["episode_batch"] * 105
+    assert read(r) == pytest.approx(100 * images * per_image * 10 / 3.35e12
+                                    * 2 / 10e-3)
+    assert read(Record("train", cfg, tr, 2, 1.0, 0.9, kernels[2:])) is None
+    assert read(Record("eval", cfg, tr, 2, 1.0, 0.9, kernels)) is None
