@@ -17,7 +17,7 @@
    adaptation shape and the main one), the three large-support-set
    Cholesky kernels (blocked, left-looking, fused Gram with its tiled
    form), and the episodic BatchNorm(+ReLU) kernels at every trunk
-   BatchNorm shape of the two train cells (forward, statistics and
+   BatchNorm shape of the three train cells (forward, statistics and
    gradients against the plain version, two calls bit-equal; forward+
    backward timed beside the plain version, the module's torch route and
    the 10-bytes-an-element bound).
@@ -62,6 +62,11 @@
      path), the fused route against the
      plain one, the step's ms, episodes/s, peak memory and profile; then
      `train` and `test` through the CLI on a generated 224-px set;
+   - DKT on ResNet50 at 224 px (the benchmark cell resnet50_cub_train_b8's
+     shapes: N = 105, D = 2048, 8 episodes a step, bf16 trunk): the fused
+     MLL at that shape against its plain version and timed; 3 train steps
+     with the launches counted (all 49 BatchNorms on the kernels), the
+     fused route against the plain one, the step's ms and peak;
    - episode parallelism at the main path's width (drive_parallel_path):
      (a) 5 steps of the sharded step on an NCCL group of one rank against
      5 plain train_steps, launches counted, both timed in turns; (b) two
@@ -394,8 +399,10 @@ def check_fused_mll_per_episode(device) -> None:
 
 
 # The train cells' trunk BatchNorms: (label, episodes, images, C, side,
-# ReLU fused, layers of this shape in the step). Conv4 at B = 32 and
-# ResNet10 at B = 16, 5w5s16q (105 images an episode).
+# ReLU fused, layers of this shape in the step). Conv4 at B = 32,
+# ResNet10 at B = 16 and ResNet50 at B = 8, 5w5s16q (105 images an
+# episode); ResNet50's 49 are its stem's and each bottleneck's BN1, BN2
+# (ReLU fused) and BN3 (the ReLU after the residual add).
 BN_SHAPES = (
     ("Conv4 84 px", 32, 3360, 64, 84, True, 1),
     ("Conv4 42 px", 32, 3360, 64, 42, True, 1),
@@ -410,6 +417,18 @@ BN_SHAPES = (
     ("ResNet10 stage 3 BN2, BNshortcut", 16, 1680, 256, 14, False, 2),
     ("ResNet10 stage 4 BN1", 16, 1680, 512, 7, True, 1),
     ("ResNet10 stage 4 BN2, BNshortcut", 16, 1680, 512, 7, False, 2),
+    ("ResNet50 stem", 8, 840, 64, 112, False, 1),
+    ("ResNet50 stage 1 BN1, BN2", 8, 840, 64, 56, True, 6),
+    ("ResNet50 stage 1 BN3", 8, 840, 256, 56, False, 3),
+    ("ResNet50 stage 2 first BN1", 8, 840, 128, 56, True, 1),
+    ("ResNet50 stage 2 BN1, BN2", 8, 840, 128, 28, True, 7),
+    ("ResNet50 stage 2 BN3", 8, 840, 512, 28, False, 4),
+    ("ResNet50 stage 3 first BN1", 8, 840, 256, 28, True, 1),
+    ("ResNet50 stage 3 BN1, BN2", 8, 840, 256, 14, True, 11),
+    ("ResNet50 stage 3 BN3", 8, 840, 1024, 14, False, 6),
+    ("ResNet50 stage 4 first BN1", 8, 840, 512, 14, True, 1),
+    ("ResNet50 stage 4 BN1, BN2", 8, 840, 512, 7, True, 5),
+    ("ResNet50 stage 4 BN3", 8, 840, 2048, 7, False, 3),
 )
 BN_LIMITS = {"y": 1e-2, "mean": 1e-4, "var": 1e-4, "dx": 1e-2, "dw": 1e-2,
              "db": 1e-2}
@@ -424,7 +443,7 @@ def rel_norm(a, b) -> float:
 
 def check_episodic_batchnorm(device) -> dict:
     """The episodic BatchNorm kernels (ops/episodic_batchnorm.py) at every
-    trunk BatchNorm shape of the two train cells: forward (y and the
+    trunk BatchNorm shape of the three train cells: forward (y and the
     statistics) and backward (dx and the weight and bias gradients)
     against the plain version, two calls on the same inputs bit-equal,
     and forward+backward timed in turns with the plain version and the
@@ -531,7 +550,9 @@ def check_episodic_batchnorm(device) -> dict:
             "plain_ms": acc["plain"], "bound_ms": acc["bound"],
             "bound_by": "bytes", "library_ms": acc["library"],
             "resnet10_ms": sums["ResNet10"]["kernel"],
-            "resnet10_bound_ms": sums["ResNet10"]["bound"]}
+            "resnet10_bound_ms": sums["ResNet10"]["bound"],
+            "resnet50_ms": sums["ResNet50"]["kernel"],
+            "resnet50_bound_ms": sums["ResNet50"]["bound"]}
 
 
 def spd_matrix(b: int, n: int, device) -> torch.Tensor:
@@ -1548,53 +1569,53 @@ RES_CLI_SPLITS = (("base", 10), ("val", 5), ("novel", 5))
 RES_CLI_IMAGES = 25
 
 
-def check_fused_mll_resnet(device) -> None:
-    """The fused MLL at the ResNet10 path's shape, B=8 N=105 D=512 W=5:
-    kernel against plain version with check_fused_mll's limits, and kernel,
-    plain version and library call timed in turns, with the bound."""
+def check_fused_mll_resnet(device, d: int = RES_D,
+                           label: str = "ResNet10") -> None:
+    """The fused MLL at a ResNet path's shape, B=8 N=105 W=5 and D = 512
+    (ResNet10) or 2048 (ResNet50): kernel against plain version with
+    check_fused_mll's limits, and kernel, plain version and library call
+    timed in turns, with the bound."""
     from deep_kernel_transfer_tpu_torch.ops.fused_mll import (
         fused_linear_mll, fused_linear_mll_plain)
 
     n = MAIN_WAY * (MAIN_SHOT + RES_QUERY)
-    check(f"fused_mll B={RES_B} N={n} D={RES_D} W={MAIN_WAY}",
-          fused_mll_errors(RES_B, n, RES_D, MAIN_WAY, device),
+    check(f"fused_mll B={RES_B} N={n} D={d} W={MAIN_WAY}",
+          fused_mll_errors(RES_B, n, d, MAIN_WAY, device),
           FUSED_MLL_LIMITS)
-    z, diffs, scales = mll_inputs(RES_B, n, RES_D, MAIN_WAY, device)
+    z, diffs, scales = mll_inputs(RES_B, n, d, MAIN_WAY, device)
     times = ms_in_turns({
         "kernel": lambda: fused_linear_mll(z, diffs, scales, n, NOISE),
         "plain": lambda: fused_linear_mll_plain(z, diffs, scales, n, NOISE),
         "library": lambda: library_mll(z, diffs, scales, NOISE)})
-    bound = fused_mll_bound_ms(RES_B, n, RES_D, MAIN_WAY)
-    print(f"fused_linear_mll ResNet10 shape B={RES_B} N={n} D={RES_D} "
+    bound = fused_mll_bound_ms(RES_B, n, d, MAIN_WAY)
+    print(f"fused_linear_mll {label} shape B={RES_B} N={n} D={d} "
           f"W={MAIN_WAY}, median (min-max) of turns: " + ", ".join(
               f"{k} {v[0]:.4f} ({v[1]:.4f}-{v[2]:.4f}) ms"
               for k, v in times.items())
           + f", bound {bound[0]:.6f} ms ({bound[1]})", flush=True)
 
 
-def drive_resnet_path(device, card: str) -> dict:
-    """DKT(ResNet10, bncossim) at full width: 224-px 5w5s16q episodes (N =
-    105, D = 512), 8 a step, bf16 trunk, random uint8 pixels from a seeded
-    CUDA generator. 5 train steps through the fused MLL (launches counted),
-    the first batch's loss against the plain GP route; the step timed by
-    CUDA events in turns, episodes/s, peak memory and a torch.profiler
-    table. Then `train` (one epoch of 3 batches of 8) and `test` through
-    the CLI on a generated 224-px miniImagenet-layout set. Returns the
-    fused MLL's launches over the phase."""
-    from deep_kernel_transfer_tpu_torch import test, train
-    from deep_kernel_transfer_tpu_torch.data import device_dataset as dd
+def resnet_train_steps(device, card: str, trunk, steps: int, layers: int,
+                       seed: int, profile: bool = False) -> dict:
+    """DKT(trunk, bncossim) at full width: 224-px 5w5s16q episodes (N =
+    105), 8 a step, bf16 trunk, random uint8 pixels from a CUDA generator
+    seeded with `seed`. `steps` train steps through the fused MLL with the
+    launches counted (one fused MLL a step; every one of the trunk's
+    `layers` BatchNorms on the kernels once each way, no layout copy), the
+    first batch's loss against the plain GP route; the step timed by CUDA
+    events in turns, episodes/s, peak memory and, with `profile`, a
+    torch.profiler table. Returns the launches."""
     from deep_kernel_transfer_tpu_torch.methods import DKT
-    from deep_kernel_transfer_tpu_torch.models import ResNet10
     from deep_kernel_transfer_tpu_torch.ops.fused_mll import fused_linear_mll
 
-    check_fused_mll_resnet(device)
-    gen = torch.Generator(device=device).manual_seed(1)
+    name = trunk.__name__
+    gen = torch.Generator(device=device).manual_seed(seed)
     shape = (RES_B, MAIN_WAY, MAIN_SHOT + RES_QUERY, RES_PX, RES_PX, 3)
     batches = [torch.randint(0, 256, shape, generator=gen, device=device,
                              dtype=torch.uint8) for _ in range(2)]
 
     def build(fused: bool):
-        return DKT(ResNet10(), MAIN_WAY, MAIN_SHOT, kernel_type="bncossim",
+        return DKT(trunk(), MAIN_WAY, MAIN_SHOT, kernel_type="bncossim",
                    feature_dtype="bfloat16", use_fused_mll=fused,
                    device=device).init(batches[0][0],
                                        torch.Generator().manual_seed(0))
@@ -1609,33 +1630,52 @@ def drive_resnet_path(device, card: str) -> dict:
     del plain
     fused_linear_mll.launches = 0
     reset_batchnorm_counts()
-    losses = [model.train_step(batches[i % 2])["loss"] for i in range(5)]
+    losses = [model.train_step(batches[i % 2])["loss"] for i in range(steps)]
     torch.cuda.synchronize()
     launched = fused_linear_mll.launches
-    bn_launched = check_batchnorm_route("ResNet10 path", 5, 12)
+    bn_launched = check_batchnorm_route(f"{name} path", steps, layers)
     losses = [float(v) for v in losses]
-    print(f"ResNet10 path: 5 train steps (bncossim, {MAIN_WAY}w{MAIN_SHOT}s"
-          f"{RES_QUERY}q, {RES_PX} px, B={RES_B}, bf16 trunk), losses "
-          f"{losses}, fused_linear_mll launches {launched}", flush=True)
+    print(f"{name} path: {steps} train steps (bncossim, {MAIN_WAY}w"
+          f"{MAIN_SHOT}s{RES_QUERY}q, {RES_PX} px, B={RES_B}, bf16 trunk), "
+          f"losses {losses}, fused_linear_mll launches {launched}", flush=True)
     if not all(math.isfinite(v) for v in losses):
-        raise AssertionError(f"non-finite ResNet10 loss: {losses}")
-    if launched != 5:
-        raise AssertionError(f"want 5 fused-MLL launches, got {launched}")
+        raise AssertionError(f"non-finite {name} loss: {losses}")
+    if launched != steps:
+        raise AssertionError(f"want {steps} fused-MLL launches, got {launched}")
     rel = abs(losses[0] - plain_loss) / abs(plain_loss)
-    print(f"ResNet10 step 1 loss: fused route {losses[0]!r}, plain route "
+    print(f"{name} step 1 loss: fused route {losses[0]!r}, plain route "
           f"{plain_loss!r}, relative difference {rel:.3e}", flush=True)
     if rel >= 1e-4:
-        raise AssertionError("ResNet10: fused route disagrees with plain")
+        raise AssertionError(f"{name}: fused route disagrees with plain")
     times = ms_in_turns({"step": lambda: model.train_step(batches[0])},
                         rounds=4, iters=3, warmup=1)
     ms, lo, hi = times["step"]
-    print(f"ResNet10 train step: {ms:.3f} ms (median of 4 turns, "
+    print(f"{name} train step: {ms:.3f} ms (median of 4 turns, "
           f"{lo:.3f}-{hi:.3f}), {RES_B / ms * 1e3:.1f} episodes/s, peak "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]",
           flush=True)
-    profile_step(lambda: model.train_step(batches[0]))
+    if profile:
+        profile_step(lambda: model.train_step(batches[0]))
     del model, batches
     torch.cuda.empty_cache()
+    return {"fused_linear_mll": launched, "episodic_batchnorm": bn_launched}
+
+
+def drive_resnet_path(device, card: str) -> dict:
+    """DKT(ResNet10, bncossim) at full width (D = 512): the fused MLL at
+    that shape against its plain version, then 5 train steps as
+    resnet_train_steps drives them, with a torch.profiler table. Then
+    `train` (one epoch of 3 batches of 8) and `test` through the CLI on a
+    generated 224-px miniImagenet-layout set. Returns the launches over
+    the phase."""
+    from deep_kernel_transfer_tpu_torch import test, train
+    from deep_kernel_transfer_tpu_torch.data import device_dataset as dd
+    from deep_kernel_transfer_tpu_torch.models import ResNet10
+    from deep_kernel_transfer_tpu_torch.ops.fused_mll import fused_linear_mll
+
+    check_fused_mll_resnet(device)
+    launches = resnet_train_steps(device, card, ResNet10, 5, 12, seed=1,
+                                  profile=True)
 
     cwd = os.getcwd()
     args = ["--dataset=miniImagenet", "--model=ResNet10", "--method=DKT",
@@ -1670,8 +1710,20 @@ def drive_resnet_path(device, card: str) -> dict:
         raise AssertionError("the ResNet10 CLI run did not train 3 batches")
     if not 0.0 <= acc <= 100.0:
         raise AssertionError(f"ResNet10 CLI accuracy {acc}")
-    return {"fused_linear_mll": launched + cli_launches,
-            "episodic_batchnorm": bn_launched}
+    launches["fused_linear_mll"] += cli_launches
+    return launches
+
+
+def drive_resnet50_path(device, card: str) -> dict:
+    """DKT(ResNet50, bncossim) at full width, the benchmark cell
+    resnet50_cub_train_b8's shapes (D = 2048): the fused MLL at that shape
+    against its plain version, then 3 train steps as resnet_train_steps
+    drives them, all 49 BatchNorms on the kernels. Returns the
+    launches."""
+    from deep_kernel_transfer_tpu_torch.models import ResNet50
+
+    check_fused_mll_resnet(device, 2048, "ResNet50")
+    return resnet_train_steps(device, card, ResNet50, 3, 49, seed=2)
 
 
 # -- the comparison methods through the CLIs ----------------------------------
@@ -3129,9 +3181,9 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 5. the main paths: DKT meta-training, the GP memory regime, the CLIs,
-    # the test-time heads on the digits, ResNet10, the parallel paths, the
-    # study runners and the Laplace probe on the studies' digits
-    # checkpoints; then the exact GP's Woodbury route.
+    # the test-time heads on the digits, ResNet10, ResNet50, the parallel
+    # paths, the study runners and the Laplace probe on the studies'
+    # digits checkpoints; then the exact GP's Woodbury route.
     # A kernel's launches are summed over the paths, each counted from 0.
     launches, step_ms = drive_main_path(device, card)
     digits = tempfile.TemporaryDirectory()
@@ -3139,6 +3191,7 @@ def main() -> int:
              lambda: drive_cli_path(device, card, step_ms),
              lambda: drive_heads_path(device, card),
              lambda: drive_resnet_path(device, card),
+             lambda: drive_resnet50_path(device, card),
              lambda: drive_parallel_path(device, card),
              lambda: drive_studies_path(device, card, digits.name),
              lambda: drive_laplace_probe_path(device, card, digits.name)]

@@ -1,6 +1,7 @@
 """Device selection shared by the port's entry points."""
 from __future__ import annotations
 
+import functools
 import subprocess
 
 import torch
@@ -15,6 +16,17 @@ def resolve_device(device=None) -> torch.device:
                                "device='cpu' to run on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+@functools.lru_cache(maxsize=None)
+def constant(values: tuple, dtype: torch.dtype,
+             device: torch.device) -> torch.Tensor:
+    """A small constant tensor, copied to `device` once a process: a copy
+    from pageable host memory on every call blocks the host until the card
+    has caught up, and the card then idles while the host works. Shared
+    by every caller, so never written to in place (tests/
+    test_torch_device_aug.py holds the callers to that)."""
+    return torch.tensor(values, dtype=dtype, device=device)
 
 
 def card_line() -> str:

@@ -29,6 +29,7 @@ import math
 
 import torch
 
+from .._device import constant
 from ..gp.kernels import full_f32
 from .transforms import JITTER_PARAMS
 
@@ -102,7 +103,7 @@ def crop_resize(images: torch.Tensor, left, top, cw, ch,
 
 
 def _luma(images: torch.Tensor) -> torch.Tensor:
-    w = torch.tensor(_LUMA_W, dtype=images.dtype, device=images.device)
+    w = constant(_LUMA_W, images.dtype, images.device)
     return torch.sum(images * w, dim=-1)
 
 
@@ -129,7 +130,8 @@ def draw_augment(gen: torch.Generator, n: int, canvas: int, out_size: int,
     with a leading [n] axis, so that a slice of them is the draws of a
     slice of the images."""
     box = sample_crop_boxes(gen, n, canvas, out_size, device)
-    alphas = torch.tensor(list(JITTER_PARAMS.values()), device=device)
+    alphas = constant(tuple(JITTER_PARAMS.values()), torch.get_default_dtype(),
+                      torch.device(device))
     u = torch.rand(n, len(JITTER_PARAMS), generator=gen, device=device)
     flip = torch.rand(n, generator=gen, device=device) < 0.5
     return (*box, alphas * (u * 2.0 - 1.0) + 1.0, flip)

@@ -38,6 +38,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from .._device import constant
 from ..gp.kernels import full_f32
 from ..ops import episodic_batchnorm as ebn
 from ..utils.profiling import annotate
@@ -54,8 +55,8 @@ def preprocess_input(x: torch.Tensor, imagenet: bool = True) -> torch.Tensor:
         return x
     x = x.to(torch.float32) / 255.0
     if imagenet:
-        mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=x.device)
-        std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=x.device)
+        mean = constant(IMAGENET_MEAN, torch.float32, x.device)
+        std = constant(IMAGENET_STD, torch.float32, x.device)
         x = (x - mean) / std
     return x
 
@@ -339,11 +340,13 @@ class SimpleBlock(nn.Module):
             self.shortcut = None
 
     def forward(self, x, train=True, ep_groups=1, stats=None):
-        h = self.BN1(self.C1(x), train, ep_groups, stats, relu=True)
-        h = self.BN2(self.C2(h), train, ep_groups, stats)
-        s = x if self.shortcut is None else self.BNshortcut(
-            self.shortcut(x), train, ep_groups, stats)
-        return F.relu(h + s)
+        with annotate("block"):
+            h = self.BN1(self.C1(x), train, ep_groups, stats, relu=True)
+            h = self.BN2(self.C2(h), train, ep_groups, stats)
+            with annotate("residual"):
+                s = x if self.shortcut is None else self.BNshortcut(
+                    self.shortcut(x), train, ep_groups, stats)
+                return F.relu(h + s)
 
 
 class BottleneckBlock(nn.Module):
@@ -365,11 +368,13 @@ class BottleneckBlock(nn.Module):
                          if in_dim != out_dim else None)
 
     def forward(self, x, train=True, ep_groups=1, stats=None):
-        h = self.BN1(self.C1(x), train, ep_groups, stats, relu=True)
-        h = self.BN2(self.C2(h), train, ep_groups, stats, relu=True)
-        h = self.BN3(self.C3(h), train, ep_groups, stats)
-        s = x if self.shortcut is None else self.shortcut(x)
-        return F.relu(h + s)
+        with annotate("block"):
+            h = self.BN1(self.C1(x), train, ep_groups, stats, relu=True)
+            h = self.BN2(self.C2(h), train, ep_groups, stats, relu=True)
+            h = self.BN3(self.C3(h), train, ep_groups, stats)
+            with annotate("residual"):
+                s = x if self.shortcut is None else self.shortcut(x)
+                return F.relu(h + s)
 
 
 class ResNet(Trunk):

@@ -13,7 +13,12 @@ The port's spans sit at its layer boundaries, nested as listed:
     dkt.step       methods/base.py::train_step_body, the whole step
       dkt.forward    the loss's forward (method.batch_loss_train)
         dkt.trunk      methods/base.py::apply_trunk (train and eval mode)
+          dkt.block      models/backbones.py::SimpleBlock.forward and
+                         BottleneckBlock.forward, once a residual block
+            dkt.residual   the block's shortcut branch, the add and the ReLU
           dkt.batchnorm  models/backbones.py::EpisodicBatchNorm.forward
+                         (inside dkt.block and dkt.residual where a block
+                         holds it)
         dkt.gp         methods/dkt.py::DKT._mll (fused MLL or ExactGP)
       dkt.backward   zero_grad and loss.backward()
       dkt.average    the episode-parallel all-reduce, where given

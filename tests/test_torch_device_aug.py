@@ -110,3 +110,59 @@ def test_weight_matrix_rows_sum_to_one_inside():
     centre = (w[1] * torch.arange(CANVAS, dtype=torch.float32)).sum(-1)
     want = (torch.arange(16, dtype=torch.float32) + 0.5) * 0.5 + 3.5
     assert torch.allclose(centre, want, atol=1e-5)
+
+
+def test_constants_are_made_once():
+    """The feed's and the trunk's small constants come from one tensor a
+    (values, dtype, device): a copy from the host on every call would make
+    the host wait for the card once a step."""
+    from deep_kernel_transfer_tpu_torch._device import constant
+    from deep_kernel_transfer_tpu_torch.models.backbones import (
+        IMAGENET_MEAN, preprocess_input)
+
+    cpu = torch.device("cpu")
+    a = constant((1.0, 2.0), torch.float32, cpu)
+    assert a is constant((1.0, 2.0), torch.float32, cpu)
+    assert a.tolist() == [1.0, 2.0] and a.dtype == torch.float32
+    assert constant((1.0, 2.0), torch.float64, cpu) is not a
+    x = torch.randint(0, 256, (2, 4, 4, 3), dtype=torch.uint8)
+
+    def step():  # the jitter's two luma weights, its factors, mean, std
+        taug.augment(torch.Generator().manual_seed(0), x[None], 4)
+        preprocess_input(x)
+
+    step()
+    before = constant.cache_info()
+    step()
+    after = constant.cache_info()
+    assert after.misses == before.misses
+    assert after.hits - before.hits == 5
+    assert constant(IMAGENET_MEAN, torch.float32, cpu).tolist() == \
+        pytest.approx(IMAGENET_MEAN)
+
+
+def test_no_caller_writes_a_shared_constant():
+    """Every caller shares the one tensor, so none may write to it: the
+    version counter of each constant the feed and the trunk use stays at
+    0 (an in-place op raises it) over an augmented batch, a preprocessed
+    one and a train step."""
+    from deep_kernel_transfer_tpu_torch._device import constant
+    from deep_kernel_transfer_tpu_torch.data.transforms import JITTER_PARAMS
+    from deep_kernel_transfer_tpu_torch.methods.dkt import DKT
+    from deep_kernel_transfer_tpu_torch.models.backbones import (
+        IMAGENET_MEAN, IMAGENET_STD, Conv4)
+
+    cpu = torch.device("cpu")
+    x = torch.randint(0, 256, (1, 2, 2, 16, 16, 3), dtype=torch.uint8)
+    taug.augment(torch.Generator().manual_seed(0), x[0], 16)
+    model = DKT(Conv4(), 2, 1, kernel_type="bncossim", device="cpu").init(
+        x[0], torch.Generator().manual_seed(0))
+    model.train_step(x)
+    shared = [constant(taug._LUMA_W, torch.float32, cpu),
+              constant(tuple(JITTER_PARAMS.values()),
+                       torch.get_default_dtype(), cpu),
+              constant(IMAGENET_MEAN, torch.float32, cpu),
+              constant(IMAGENET_STD, torch.float32, cpu)]
+    assert [t._version for t in shared] == [0, 0, 0, 0]
+    assert shared[2].tolist() == pytest.approx(IMAGENET_MEAN)
+    assert shared[3].tolist() == pytest.approx(IMAGENET_STD)

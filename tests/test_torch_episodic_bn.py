@@ -29,13 +29,14 @@ def _one_thread():
     torch.set_num_threads(prev)
 
 
-def _inputs(c: int, groups: int, channels_last: bool, seed: int = 0):
-    """bf16 x [groups * 3, c, 5, 6] with a per-channel offset and scale, a
+def _inputs(c: int, groups: int, channels_last: bool, seed: int = 0,
+            hw: tuple[int, int] = (5, 6)):
+    """bf16 x [groups * 3, c, *hw] with a per-channel offset and scale, a
     BatchNorm with drawn weight, bias and running statistics, and a
     bf16 upstream gradient."""
     g = torch.Generator().manual_seed(seed + c + groups)
     n = groups * 3
-    x = (torch.randn(n, c, 5, 6, generator=g) * (0.5 + torch.rand(
+    x = (torch.randn(n, c, *hw, generator=g) * (0.5 + torch.rand(
         1, c, 1, 1, generator=g)) + torch.randn(1, c, 1, 1, generator=g))
     x = x.to(torch.bfloat16)
     if channels_last:
@@ -79,12 +80,24 @@ def _op(bn, x, groups, relu, dy):
     return y.detach(), dx, dw, db, (new_mean, new_var)
 
 
-@pytest.mark.parametrize("c", [64, 512])
+@pytest.mark.parametrize("c", [64, 512, 1024, 2048])
 @pytest.mark.parametrize("channels_last", [True, False])
 @pytest.mark.parametrize("groups", [1, 4])
 @pytest.mark.parametrize("relu", [False, True])
 def test_plain_op_matches_the_torch_route(c, channels_last, groups, relu):
-    x, bn, dy = _inputs(c, groups, channels_last)
+    _matches_the_torch_route(c, channels_last, groups, relu, (5, 6))
+
+
+@pytest.mark.parametrize("c", [1024, 2048])
+@pytest.mark.parametrize("relu", [False, True])
+def test_plain_op_matches_the_torch_route_on_a_7x7_map(c, relu):
+    """ResNet50's last stages: C = 1024 and 2048 (2 and 1 tile rows) on
+    the 7x7 map of 224-px images."""
+    _matches_the_torch_route(c, True, 2, relu, (7, 7))
+
+
+def _matches_the_torch_route(c, channels_last, groups, relu, hw):
+    x, bn, dy = _inputs(c, groups, channels_last, hw=hw)
     want = _torch_route(bn, x, groups, relu, dy)
     got = _op(bn, x, groups, relu, dy)
     y_w, dx_w, dw_w, db_w, (rm_w, rv_w) = want
@@ -128,7 +141,8 @@ def test_split_sums_follow_the_plan():
     """The plain sums take the kernels' splits: every split but the last
     full, rows a split a multiple of the CTA's rows at once."""
     for groups, rows, c in [(32, 740880, 64), (16, 5145, 512), (1, 7, 8),
-                            (4, 30, 2048)]:
+                            (4, 30, 2048), (8, 329280, 256), (8, 20580, 1024),
+                            (8, 5145, 2048)]:
         splits, per_split = ebn.plan(groups, rows, c)
         assert 1 <= splits <= ebn.MAX_SPLITS
         assert per_split % (ebn.THREADS // (c // ebn.VEC)) == 0
