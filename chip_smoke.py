@@ -20,7 +20,11 @@
    BatchNorm shape of the three train cells (forward, statistics and
    gradients against the plain version, two calls bit-equal; forward+
    backward timed beside the plain version, the module's torch route and
-   the 10-bytes-an-element bound).
+   the 10-bytes-an-element bound), and the eval-mode BatchNorm(+ReLU)
+   kernel at Conv4's eval batch and two ResNet50 shapes (against the
+   module's eval torch route within a bf16 ulp, two calls bit-equal, its
+   launches counted; timed beside the torch route and the 4-bytes-an-
+   element bound).
 5. Drives the main paths, each with the launch counts set to 0 just before
    and read just after:
    - DKT meta-training (Conv4, bncossim, 5-way 5-shot 15-query, 84x84x3
@@ -29,7 +33,8 @@
      count, that every 4-D BatchNorm took the episodic BatchNorm kernels
      once each way with no layout copy, and the fused route against the
      plain route, runs the eval
-     head, times a train step on both GP routes in turns and prints a
+     head on one batch (its 4 BatchNorms on the eval kernel, none left to
+     torch, no layout copy), times a train step on both GP routes in turns and prints a
      torch.profiler table of the step's device time by kernel;
    - the GP engine's memory regime: Cholesky logdets and their gradients
      at the JAX benchmark's shapes and the memory demo's fused arm at
@@ -433,6 +438,18 @@ BN_SHAPES = (
 BN_LIMITS = {"y": 1e-2, "mean": 1e-4, "var": 1e-4, "dx": 1e-2, "dw": 1e-2,
              "db": 1e-2}
 BN_BYTES = 10  # bf16: x in, y out; dy and x in, dx out
+# Eval-mode BatchNorm shapes (label, images, C, px, relu, layers): Conv4's
+# eval batch of 32 5w5s15q episodes, and ResNet50 at 16 such episodes.
+EVAL_BN_SHAPES = (
+    ("Conv4 84 px", 3200, 64, 84, True, 1),
+    ("Conv4 42 px", 3200, 64, 42, True, 1),
+    ("Conv4 21 px", 3200, 64, 21, True, 1),
+    ("Conv4 10 px", 3200, 64, 10, True, 1),
+    ("ResNet50 stage 1 BN3", 1600, 256, 56, False, 3),
+    ("ResNet50 stage 4 BN3", 1600, 2048, 7, False, 3),
+)
+EVAL_BN_BYTES = 4  # bf16: x in, y out
+PROTOCOL_IMAGES = 600 * 5 * 20  # a 600-episode 5w5s15q protocol
 
 
 def rel_norm(a, b) -> float:
@@ -551,6 +568,124 @@ def check_episodic_batchnorm(device) -> dict:
             "bound_by": "bytes", "library_ms": acc["library"],
             "resnet10_ms": sums["ResNet10"]["kernel"],
             "resnet10_bound_ms": sums["ResNet10"]["bound"],
+            "resnet50_ms": sums["ResNet50"]["kernel"],
+            "resnet50_bound_ms": sums["ResNet50"]["bound"]}
+
+
+def ulps_apart(a: torch.Tensor, b: torch.Tensor) -> tuple[float, float]:
+    """(the largest |a - b| / (1e-5 + 2^-7 |b|), at most 1 within a bf16
+    rounding; the share of elements that differ) of two bf16 tensors, in
+    slices along dim 0."""
+    worst, differ = 0.0, 0
+    for i in range(0, a.shape[0], 256):
+        x, y = a[i:i + 256].float(), b[i:i + 256].float()
+        worst = max(worst, float(((x - y).abs() / (1e-5 + 2 ** -7 * y.abs()))
+                                 .max()))
+        differ += int((x != y).sum())
+    return worst, differ / a.numel()
+
+
+def check_episodic_batchnorm_eval(device) -> dict:
+    """The eval-mode BatchNorm(+ReLU) kernel (ops/episodic_batchnorm.py::
+    episodic_batchnorm_eval) through the module's eval route under
+    no_grad, at Conv4's eval batch (3200 images, 84/42/21/10 px, C = 64,
+    ReLU) and ResNet50's C = 256 at 56 px and C = 2048 at 7 px (1600
+    images, no ReLU): against the module's eval torch route and the plain
+    version within a bf16 rounding, two calls bit-equal, one eval launch
+    a call and none left to torch, and ms a call by CUDA events in turns
+    with the torch route, beside the bound of 4 bytes an element at 3.35
+    TB/s. Prints the Conv4 batch's and protocol's sums and returns the
+    Conv4 batch's entry."""
+    from deep_kernel_transfer_tpu_torch.models.backbones import \
+        EpisodicBatchNorm
+    from deep_kernel_transfer_tpu_torch.ops import episodic_batchnorm as ebn
+
+    gen = torch.Generator(device=device).manual_seed(19)
+    counter = ebn.episodic_batchnorm
+    sums = {}
+    worst = 0.0
+    for label, images, c, px, relu, layers in EVAL_BN_SHAPES:
+        x = (torch.randn((images, px, px, c), generator=gen, device=device)
+             * 1.5 + 0.3).to(torch.bfloat16).permute(0, 3, 1, 2)
+        bn = EpisodicBatchNorm(c).to(device)
+        with torch.no_grad():
+            bn.weight.copy_(1.0 + 0.3 * torch.randn(c, generator=gen,
+                                                    device=device))
+            bn.bias.copy_(0.2 * torch.randn(c, generator=gen, device=device))
+            bn.running_mean.copy_(0.3 + 0.1 * torch.randn(
+                c, generator=gen, device=device))
+            bn.running_var.copy_(2.25 * (1.0 + 0.1 * torch.rand(
+                c, generator=gen, device=device)))
+
+        @torch.no_grad()
+        def kernel():
+            return bn(x, False, 1, None, relu=relu)
+
+        @torch.no_grad()
+        def torch_route():
+            """The module's eval torch ops, the kernel's route refused."""
+            supports, ebn.supports = ebn.supports, lambda t: False
+            try:
+                return bn(x, False, 1, None, relu=relu)
+            finally:
+                ebn.supports = supports
+
+        counter.eval_launches = counter.eval_torch_route = 0
+        got, again = kernel(), kernel()
+        torch.cuda.synchronize()
+        counts = (counter.eval_launches, counter.eval_torch_route)
+        same = torch.equal(got, again)
+        del again
+        want = torch_route()
+        with torch.no_grad():
+            plain = ebn._eval_plain(x, bn.weight, bn.bias, bn.running_mean,
+                                    bn.running_var, bn.eps, relu)
+        (ulps, differ), (ulps_p, differ_p) = (ulps_apart(got, want),
+                                              ulps_apart(got, plain))
+        del got, want, plain
+        print(f"episodic_batchnorm_eval {label} ({images}x{c}x{px}x{px}, "
+              f"relu {relu}): against the torch route {ulps:.3f} of a bf16 "
+              f"rounding at most, {100 * differ:.4f}% of elements differ; "
+              f"against the plain version {ulps_p:.3f}, {100 * differ_p:.4f}"
+              f"%; bit-equal twice {same}; eval launches {counts[0]} (want "
+              f"2), eval torch route {counts[1]}", flush=True)
+        if not same or counts != (2, 0) or max(ulps, ulps_p) > 1.0:
+            raise AssertionError(f"episodic_batchnorm_eval {label} failed")
+        worst = max(worst, ulps)
+        times = ms_in_turns({"kernel": kernel, "library": torch_route},
+                            rounds=3, iters=5, warmup=1)
+        bound = images * c * px * px * EVAL_BN_BYTES / PEAK_BYTES * 1e3
+        print(f"episodic_batchnorm_eval {label}, median (min-max) of turns: "
+              + ", ".join(f"{k} {v[0]:.4f} ({v[1]:.4f}-{v[2]:.4f}) ms"
+                          for k, v in times.items())
+              + f" (library: the module's eval torch route), bound "
+              f"{bound:.4f} ms, kernel at {100 * bound / times['kernel'][0]:.1f}"
+              f"% of it", flush=True)
+        acc = sums.setdefault(label.split()[0], {"kernel": 0.0,
+                                                 "library": 0.0,
+                                                 "bound": 0.0})
+        for k in ("kernel", "library"):
+            acc[k] += layers * times[k][0]
+        acc["bound"] += layers * bound
+        del x, bn
+        torch.cuda.empty_cache()
+    acc = sums["Conv4"]
+    per_protocol = PROTOCOL_IMAGES / EVAL_BN_SHAPES[0][1]
+    print(f"episodic_batchnorm_eval: Conv4's eval batch of 3200 images: "
+          f"kernel {acc['kernel']:.3f} ms, torch route {acc['library']:.3f} "
+          f"ms, bound {acc['bound']:.3f} ms (kernel at "
+          f"{100 * acc['bound'] / acc['kernel']:.1f}%); a 600-episode "
+          f"protocol: kernel {per_protocol * acc['kernel']:.1f} ms, torch "
+          f"route {per_protocol * acc['library']:.1f} ms, bound "
+          f"{per_protocol * acc['bound']:.1f} ms", flush=True)
+    return {"name": "episodic_batchnorm_eval", "route": "cuda",
+            "source": "deep_kernel_transfer_tpu_torch/csrc/"
+                      "episodic_batchnorm.cu",
+            "replaces": "none: XLA fuses the JAX BatchNorm "
+                        "(models/backbones.py:120-139)",
+            "launches": None, "max_abs_err": worst, "ms": acc["kernel"],
+            "bound_ms": acc["bound"], "bound_by": "bytes",
+            "library_ms": acc["library"],
             "resnet50_ms": sums["ResNet50"]["kernel"],
             "resnet50_bound_ms": sums["ResNet50"]["bound"]}
 
@@ -970,6 +1105,27 @@ def reset_batchnorm_counts() -> None:
         episodic_batchnorm as ebn
 
     ebn.launches = ebn.torch_route = ebn.copies = 0
+    ebn.eval_launches = ebn.eval_torch_route = 0
+
+
+def check_eval_batchnorm_route(label: str, batches: int, layers: int) -> int:
+    """Every 4-D bf16 eval BatchNorm of `batches` eval batches took the eval
+    kernel: one launch a layer a batch, none left to torch, no layout copy
+    and no training kernel (counted from 0 by the caller). Returns the
+    eval launches."""
+    from deep_kernel_transfer_tpu_torch.ops.episodic_batchnorm import \
+        episodic_batchnorm as ebn
+
+    got = (ebn.eval_launches, ebn.eval_torch_route, ebn.copies,
+           ebn.launches, ebn.torch_route)
+    print(f"{label}: episodic_batchnorm eval launches {got[0]} (want "
+          f"{batches} batches x {layers} layers), eval torch route {got[1]}, "
+          f"layout copies {got[2]}, training launches {got[3]}, training "
+          f"torch route {got[4]}", flush=True)
+    if got != (batches * layers, 0, 0, 0, 0):
+        raise AssertionError(f"{label}: the trunk's eval BatchNorms did not "
+                             f"all take the eval kernel: {got}")
+    return got[0]
 
 
 def drive_main_path(device, card: str) -> tuple[dict, float]:
@@ -1018,7 +1174,11 @@ def drive_main_path(device, card: str) -> tuple[dict, float]:
     if step1_rel >= 1e-4:
         raise AssertionError("fused route disagrees with the plain route")
 
+    reset_batchnorm_counts()
     acc = model.batch_correct(batches[1])
+    torch.cuda.synchronize()
+    launches["episodic_batchnorm_eval"] = check_eval_batchnorm_route(
+        "main path eval batch", 1, 4)
     if acc.shape != (MAIN_B,) or not bool(((acc >= 0) & (acc <= 100)).all()):
         raise AssertionError(f"bad accuracies {acc}")
     print(f"batch_correct: mean query accuracy {float(acc.mean()):.2f}% over "
@@ -3178,6 +3338,8 @@ def main() -> int:
         kernels[entry["name"]] = entry
     torch.cuda.empty_cache()
     kernels["episodic_batchnorm"] = check_episodic_batchnorm(device)
+    torch.cuda.empty_cache()
+    kernels["episodic_batchnorm_eval"] = check_episodic_batchnorm_eval(device)
     torch.cuda.empty_cache()
 
     # 5. the main paths: DKT meta-training, the GP memory regime, the CLIs,

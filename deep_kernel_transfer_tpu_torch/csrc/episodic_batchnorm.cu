@@ -22,13 +22,20 @@
 // and weight gradients. The ReLU mask is recomputed from x, scale and shift
 // by the forward's own arithmetic, so y is never read back.
 //
-// Six kernels, two entry points, all on the caller's stream:
+// Seven kernels, three entry points, all on the caller's stream:
 //   forward:  episodic_bn_stats     one read of x: f32 partial sums
 //             episodic_bn_finalize  mean, var, rstd, scale, shift
 //             episodic_bn_apply     one read of x, one write of y
 //   backward: episodic_bn_grad_stats   one read of dy and x: partial sums
 //             episodic_bn_grad_finalize  the sums of the partials
 //             episodic_bn_grad_apply     one read of dy and x, one write of dx
+//   eval:     episodic_bn_eval_finalize  scale, shift from the running
+//                                        mean and var
+//             episodic_bn_apply     one read of x, one write of y
+// In eval mode the normalisation is one per-channel affine map, with the
+// running mean and var in place of the batch's, over the whole batch as
+// one group: G = 1, and the row split is the caller's, since no partial
+// sums tie it to the training kernels' split.
 // A streaming CTA takes one episode and a run of `per_split` rows of it, all
 // C channels: a thread owns 8 neighbouring channels (one 16-byte access) and
 // walks the rows C / 8 threads apart, four rows in flight, so its channels'
@@ -42,6 +49,8 @@
 // an element in bf16. These kernels move 16 (x is read twice each way, since
 // the statistics must be complete before the apply pass): at 3.35 TB/s the
 // Conv4 step's 2.01e9 elements take 9.6 ms, against the 6.0 ms bound.
+// In eval mode the bound is x in and y out, 4 bytes an element, and the one
+// apply pass moves just that.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -408,6 +417,27 @@ episodic_bn_grad_apply(const __nv_bfloat16* __restrict__ dy,
         out(load(gsrc + r * c), load(xsrc + r * c));
 }
 
+// stats [5, 1, C] = running mean, running var, rstd, scale, shift: the
+// training finalize's law with the running statistics in place of the
+// batch's.
+__global__ void __launch_bounds__(kFinalizeThreads)
+episodic_bn_eval_finalize(const float* __restrict__ weight,
+                          const float* __restrict__ bias,
+                          const float* __restrict__ running_mean,
+                          const float* __restrict__ running_var,
+                          float* __restrict__ stats, int c, float eps) {
+  const int ch = blockIdx.x * blockDim.x + threadIdx.x;
+  if (ch >= c) return;
+  const float mean = running_mean[ch], var = running_var[ch];
+  const float rstd = rsqrtf(var + eps);
+  const float scale = round_bf16(weight[ch]) * rstd;
+  stats[ch] = mean;
+  stats[c + ch] = var;
+  stats[2 * c + ch] = rstd;
+  stats[3 * c + ch] = scale;
+  stats[4 * c + ch] = fmaf(-mean, scale, round_bf16(bias[ch]));
+}
+
 bool valid(int groups, long long rows, int c, int splits,
            long long per_split) {
   return groups >= 1 && groups <= 65535 && rows >= 1 && c >= kVec &&
@@ -495,6 +525,38 @@ int episodic_bn_backward(const void* dy, const void* x, void* dx,
   else
     episodic_bn_grad_apply<false><<<grid, threads, 0, s>>>(
         gb, xb, db, stats, sums, groups, rows, c, per_split, (float)rows);
+  return (int)cudaGetLastError();
+}
+
+// Eval mode. x, y [P, C] bf16 (channels-last [n, C, H, W], P = n H W
+// rows); weight, bias, running_mean, running_var [C] f32; stats [5, 1, C]
+// f32 out (running mean, running var, rstd, scale, shift). Rows
+// [s per_split, (s + 1) per_split) go to CTA s. x and y 16-byte aligned.
+// Launches on `stream`; returns a cudaError_t.
+int episodic_bn_eval_forward(const void* x, void* y, const float* weight,
+                             const float* bias, const float* running_mean,
+                             const float* running_var, float* stats,
+                             long long rows, int c, int splits,
+                             long long per_split, float eps, int relu,
+                             void* stream) {
+  if (!valid(1, rows, c, splits, per_split))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const Tile t = tile_of(c);
+  const int threads = t.lanes * t.rows;
+  episodic_bn_eval_finalize<<<finalize_blocks(1, c), kFinalizeThreads, 0,
+                              s>>>(weight, bias, running_mean, running_var,
+                                   stats, c, eps);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const auto* xb = static_cast<const __nv_bfloat16*>(x);
+  auto* yb = static_cast<__nv_bfloat16*>(y);
+  if (relu)
+    episodic_bn_apply<true><<<stream_grid(1, splits), threads, 0, s>>>(
+        xb, yb, stats, 1, rows, c, per_split);
+  else
+    episodic_bn_apply<false><<<stream_grid(1, splits), threads, 0, s>>>(
+        xb, yb, stats, 1, rows, c, per_split);
   return (int)cudaGetLastError();
 }
 

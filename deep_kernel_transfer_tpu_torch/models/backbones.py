@@ -99,9 +99,11 @@ class EpisodicBatchNorm(nn.Module):
     `relu` applies a ReLU to the output. A bf16 4-D CUDA input in training
     mode, outside the split-batch case, takes the fused kernels of
     ops/episodic_batchnorm.py (the normalisation and the ReLU in one pass
-    each way); every other input takes the torch ops below, and a bf16 4-D
-    training input among them is counted in
-    `episodic_batchnorm.torch_route`."""
+    each way); in eval mode, where the output records no gradient, it
+    takes the eval kernel there (one pass). Every other input takes the
+    torch ops below; a bf16 4-D training input among them is counted in
+    `episodic_batchnorm.torch_route`, a bf16 4-D CUDA eval input in
+    `episodic_batchnorm.eval_torch_route`."""
 
     momentum = 0.1
     eps = 1e-5
@@ -135,6 +137,14 @@ class EpisodicBatchNorm(nn.Module):
                         stats[self] = (new_mean, new_var)
                     return y
                 ebn.episodic_batchnorm.torch_route += 1
+            if (not train and x.dim() == 4 and x.dtype == torch.bfloat16
+                    and x.is_cuda):
+                if ebn.supports(x) and not ebn.records_grad(
+                        x, self.weight, self.bias):
+                    return ebn.episodic_batchnorm_eval(
+                        x, self.weight, self.bias, self.running_mean,
+                        self.running_var, self.eps, relu)
+                ebn.episodic_batchnorm.eval_torch_route += 1
             c = x.shape[1]
             acc = torch.promote_types(x.dtype, torch.float32)
             two_pass = x.dtype == acc

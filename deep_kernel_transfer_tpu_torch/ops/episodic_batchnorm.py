@@ -1,6 +1,7 @@
-"""Episodic BatchNorm (+ReLU) in training mode for bf16 4-D activations:
+"""Episodic BatchNorm (+ReLU) for bf16 4-D activations, in training mode
+(`episodic_batchnorm`) and in eval mode (`episodic_batchnorm_eval`):
 `csrc/episodic_batchnorm.cu` on the card, the same algorithm in torch ops
-(`_forward_plain`, `_backward_plain`) on the CPU.
+(`_forward_plain`, `_backward_plain`, `_eval_plain`) on the CPU.
 
 Replaces no Pallas kernel: the JAX package leaves its BatchNorm
 (deep_kernel_transfer_tpu/models/backbones.py:120-139) to XLA's fusion.
@@ -22,6 +23,11 @@ bf16 x and the [5, G, C] statistics (mean, var, rstd, scale, shift); the
 ReLU mask is recomputed from them by the forward's arithmetic. Under
 create_graph the backward runs `_backward_plain` with grad mode on, which
 recomputes the statistics from x, so higher derivatives follow.
+
+In eval mode the running mean and var stand in for the batch's, over the
+whole batch: scale and shift come from them by the same law, and one
+apply pass over the [n H W, C] block writes y, 4 bytes an element. It
+records no gradient, so it is taken only where none is wanted.
 """
 from __future__ import annotations
 
@@ -40,6 +46,11 @@ MAX_C = VEC * THREADS
 TARGET_CTAS = 2048
 MIN_ELEMENTS = 16384
 MAX_SPLITS = 512
+# The eval apply's row split: about EVAL_ELEMENTS elements a CTA, so that a
+# large map spreads over many waves of short CTAs and the last wave's tail
+# is short; at most MAX_GRID CTAs (the kernels' launch limit).
+EVAL_ELEMENTS = 32768
+MAX_GRID = 65535
 
 
 def supports(x: torch.Tensor) -> bool:
@@ -59,6 +70,21 @@ def plan(groups: int, rows: int, c: int) -> tuple[int, int]:
     per_split = -(-rows // splits)
     per_split = -(-per_split // tile_rows) * tile_rows
     return -(-rows // per_split), per_split
+
+
+def eval_plan(rows: int, c: int) -> tuple[int, int]:
+    """(splits, rows a split) of the eval apply over `rows` rows of c
+    channels: rows a split a multiple of the CTA's rows at once."""
+    tile_rows = THREADS // (c // VEC)
+    splits = max(1, min(-(-rows * c // EVAL_ELEMENTS), MAX_GRID))
+    per_split = -(-rows // splits)
+    per_split = -(-per_split // tile_rows) * tile_rows
+    return -(-rows // per_split), per_split
+
+
+def records_grad(*tensors: torch.Tensor) -> bool:
+    """Whether an op on these tensors would record a gradient."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def _grouped(t: torch.Tensor, groups: int) -> torch.Tensor:
@@ -199,6 +225,42 @@ def _backward_cuda(dy, x, stats, groups: int, relu: bool):
     return dx, sums
 
 
+def _eval_plain(x, weight, bias, running_mean, running_var, eps: float,
+                relu: bool):
+    """Eval-mode y with torch ops: bf16(x scale + shift), then the ReLU."""
+    c = x.shape[1]
+    scale = (weight.to(torch.bfloat16).float()
+             * torch.rsqrt(running_var.float() + eps))
+    shift = bias.to(torch.bfloat16).float() - running_mean.float() * scale
+    y = x.float() * scale.view(1, c, 1, 1) + shift.view(1, c, 1, 1)
+    if relu:
+        y = torch.clamp_min(y, 0.0)
+    return y.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+
+
+def _eval_cuda(x, weight, bias, running_mean, running_var, eps: float,
+               relu: bool):
+    n, c, h, w = x.shape
+    rows = n * h * w
+    splits, per_split = eval_plan(rows, c)
+    f32 = [t.detach().to(torch.float32).contiguous()
+           for t in (weight, bias, running_mean, running_var)]
+    y = torch.empty_like(x, memory_format=torch.channels_last)
+    stats = torch.empty((5, 1, c), dtype=torch.float32, device=x.device)
+    fn = _ctypes(build.load("episodic_batchnorm").episodic_bn_eval_forward, 7,
+                 [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                  ctypes.c_longlong, ctypes.c_float, ctypes.c_int])
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), y.data_ptr(), *(t.data_ptr() for t in f32),
+                 stats.data_ptr(), rows, c, splits, per_split, float(eps),
+                 int(relu), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"episodic_bn_eval_forward launch failed: "
+                           f"{build.error_name(err)}")
+    episodic_batchnorm.eval_launches += 1
+    return y
+
+
 def running_averages(running_mean, running_var, mean, var, unbiased_factor,
                      momentum: float):
     """The new running averages, new = (1 - m) old + m batch, from the
@@ -270,6 +332,45 @@ def episodic_batchnorm(x: torch.Tensor, weight: torch.Tensor,
                                     float(momentum), bool(relu))
 
 
+class _EvalLaunch(torch.autograd.Function):
+    """`_eval_cuda` as an op of its own: a profiler links a kernel to the
+    op it was launched in, and a launch in no op to none. It is taken only
+    where no gradient is recorded, so it has no backward."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, running_mean, running_var, eps, relu):
+        return _eval_cuda(x, weight, bias, running_mean, running_var, eps,
+                          relu)
+
+
+def episodic_batchnorm_eval(x: torch.Tensor, weight: torch.Tensor,
+                            bias: torch.Tensor, running_mean: torch.Tensor,
+                            running_var: torch.Tensor, eps: float = 1e-5,
+                            relu: bool = False) -> torch.Tensor:
+    """Eval-mode BatchNorm of bf16 x [N, C, H, W] by the running mean and
+    var [C] (f32), then a ReLU where `relu`: y [N, C, H, W] bf16 in
+    channels-last memory, bf16(x scale + shift) with scale = bf16(w)
+    rsqrt(var + eps) and shift = bf16(b) - mean scale in f32. It records
+    no gradient, and refuses inputs that would want one. CUDA tensors
+    launch the kernels (a non-channels-last x is copied to channels-last
+    first); CPU tensors take `_eval_plain`."""
+    if not supports(x):
+        raise ValueError(f"episodic_batchnorm_eval takes bf16 [N, C, H, W] "
+                         f"with C a multiple of {VEC} up to {MAX_C}; got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    if records_grad(x, weight, bias):
+        raise ValueError("episodic_batchnorm_eval records no gradient; run "
+                         "it under torch.no_grad()")
+    if not x.is_cuda:
+        return _eval_plain(x, weight, bias, running_mean, running_var, eps,
+                           relu)
+    return _EvalLaunch.apply(_channels_last(x), weight, bias, running_mean,
+                             running_var, float(eps), bool(relu))
+
+
 episodic_batchnorm.launches = 0  # kernel entry calls, forward and backward
 episodic_batchnorm.torch_route = 0  # bf16 4-D training calls left to torch
 episodic_batchnorm.copies = 0  # layout copies of an input or a gradient
+episodic_batchnorm.eval_launches = 0  # eval kernel entry calls
+episodic_batchnorm.eval_torch_route = 0  # bf16 4-D CUDA eval calls left
+# to torch

@@ -178,6 +178,70 @@ def test_routes_and_counters_on_the_cpu():
                                *running, 3)
 
 
+@pytest.mark.parametrize("c", [64, 2048])
+@pytest.mark.parametrize("channels_last", [True, False])
+@pytest.mark.parametrize("relu", [False, True])
+def test_eval_plain_matches_the_torch_route(c, channels_last, relu):
+    """The eval kernel's arithmetic in torch ops (`_eval_plain`, the eval
+    op's CPU route): one f32 bf16(x scale + shift) against the module's
+    eval chain bf16((x - mean) rstd w + b), within a bf16 ulp, and equal
+    at nearly every element."""
+    x, bn, _ = _inputs(c, 2, channels_last)
+    running = (bn.running_mean, bn.running_var)
+    with torch.no_grad():
+        want = bn(x, False, 1, relu=relu)
+        got = ebn.episodic_batchnorm_eval(x, bn.weight, bn.bias, *running,
+                                          bn.eps, relu)
+    assert torch.equal(got, ebn._eval_plain(x, bn.weight, bn.bias, *running,
+                                            bn.eps, relu))
+    assert got.dtype == torch.bfloat16
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
+                               atol=1e-5)
+    assert float((got != want).float().mean()) < 1e-2
+    if relu:
+        assert bool((got >= 0).all())
+
+
+@pytest.mark.parametrize("grad", [False, True])
+def test_eval_on_the_cpu_takes_the_torch_route(grad):
+    """A CPU eval call, with grad mode on or off, takes the module's torch
+    ops and moves no counter; the eval op refuses an input whose output
+    would record a gradient."""
+    x, bn, _ = _inputs(16, 1, True)
+    names = ("launches", "torch_route", "copies", "eval_launches",
+             "eval_torch_route")
+
+    def counters():
+        return [getattr(ebn.episodic_batchnorm, k) for k in names]
+
+    before = counters()
+    with torch.set_grad_enabled(grad):
+        y = bn(x, False, 1, relu=True)
+        assert ebn.records_grad(x, bn.weight, bn.bias) == grad
+        if grad:
+            with pytest.raises(ValueError):
+                ebn.episodic_batchnorm_eval(x, bn.weight, bn.bias,
+                                            bn.running_mean, bn.running_var)
+    assert y.requires_grad == grad
+    assert counters() == before
+
+
+@pytest.mark.parametrize("rows,c", [(3200 * 84 * 84, 64), (3200 * 10 * 10, 64),
+                                    (800 * 56 * 56, 256), (800 * 7 * 7, 2048),
+                                    (7, 8), (3200 * 112 * 112, 64)])
+def test_eval_plan_covers_the_rows(rows, c):
+    """The eval apply's split: every split but the last full, rows a split
+    a multiple of the CTA's rows at once, within the launch limit, and
+    about EVAL_ELEMENTS elements a CTA where the grid allows."""
+    splits, per_split = ebn.eval_plan(rows, c)
+    assert 1 <= splits <= ebn.MAX_GRID
+    assert per_split % (ebn.THREADS // (c // ebn.VEC)) == 0
+    assert (splits - 1) * per_split < rows <= splits * per_split
+    if splits < ebn.MAX_GRID and splits > 1:
+        assert per_split * c < 2 * ebn.EVAL_ELEMENTS
+
+
 @pytest.mark.parametrize("config,traffic,per_image", [
     ("dkt_conv4_miniimagenet", "train_5w5s16q_b32", 599104),
     ("dkt_resnet10_cub", "train_5w5s16q_b16", 1731072)])
