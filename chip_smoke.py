@@ -502,12 +502,11 @@ def check_episodic_batchnorm(device) -> dict:
         xr = x.detach().requires_grad_(True)
 
         def torch_route():
-            """The module's torch ops, the kernels' route refused."""
-            supports, ebn.supports = ebn.supports, lambda t: False
-            try:
-                y = bn(xr, True, groups, None, relu=relu)
-            finally:
-                ebn.supports = supports
+            """The module's torch ops (`batchnorm_torch`)."""
+            y, _ = ebn.batchnorm_torch(
+                xr, bn.weight, bn.bias, bn.running_mean, bn.running_var,
+                train=True, groups=groups, eps=eps, momentum=bn.momentum,
+                relu=relu)
             torch.autograd.backward(y, dy)
 
         before = ebn.episodic_batchnorm.launches
@@ -623,12 +622,10 @@ def check_episodic_batchnorm_eval(device) -> dict:
 
         @torch.no_grad()
         def torch_route():
-            """The module's eval torch ops, the kernel's route refused."""
-            supports, ebn.supports = ebn.supports, lambda t: False
-            try:
-                return bn(x, False, 1, None, relu=relu)
-            finally:
-                ebn.supports = supports
+            """The module's eval torch ops (`batchnorm_torch`)."""
+            return ebn.batchnorm_torch(
+                x, bn.weight, bn.bias, bn.running_mean, bn.running_var,
+                train=False, eps=bn.eps, relu=relu)[0]
 
         counter.eval_launches = counter.eval_torch_route = 0
         got, again = kernel(), kernel()

@@ -87,23 +87,17 @@ class BatchStats(dict):
 class EpisodicBatchNorm(nn.Module):
     """BatchNorm over the channel axis (dim 1) with torch's running-average
     convention: new = (1-m) old + m batch, m = 0.1, unbiased running
-    variance; eps 1e-5. Statistics are float32 for a float32 or
-    lower-precision input, float64 for a float64 one. With ep_groups > 1
-    the running update is the per-episode update averaged over episodes.
-    A float32 or float64 input takes the two-pass variance, a
-    lower-precision one the one-pass E[x^2] - m^2 (JAX backbones.py
-    :125-139). Where `stats` is a BatchStats with a `batch_sum` and
-    ep_groups is 1, the statistics are those of the whole batch that the
-    ranks split between them.
+    variance; eps 1e-5. With ep_groups > 1 the running update is the
+    per-episode update averaged over episodes. Where `stats` is a
+    BatchStats with a `batch_sum` and ep_groups is 1, the statistics are
+    those of the whole batch that the ranks split between them. `relu`
+    applies a ReLU to the output.
 
-    `relu` applies a ReLU to the output. A bf16 4-D CUDA input in training
-    mode, outside the split-batch case, takes the fused kernels of
-    ops/episodic_batchnorm.py (the normalisation and the ReLU in one pass
-    each way); in eval mode, where the output records no gradient, it
-    takes the eval kernel there (one pass). Every other input takes the
-    torch ops below; a bf16 4-D training input among them is counted in
-    `episodic_batchnorm.torch_route`, a bf16 4-D CUDA eval input in
-    `episodic_batchnorm.eval_torch_route`."""
+    ops/episodic_batchnorm.py::batchnorm chooses the route: the fused
+    kernels there for a bf16 4-D CUDA input, outside the split-batch case
+    (in eval mode where the output records no gradient), and its torch
+    ops, `batchnorm_torch` (whose docstring gives the statistics' dtype
+    and variance law), for every other input."""
 
     momentum = 0.1
     eps = 1e-5
@@ -125,78 +119,14 @@ class EpisodicBatchNorm(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = True, ep_groups: int = 1,
                 stats: dict | None = None, relu: bool = False) -> torch.Tensor:
         with annotate("batchnorm"):
-            if train and x.dim() == 4 and x.dtype == torch.bfloat16:
-                split = (getattr(stats, "batch_sum", None) is not None
-                         and ep_groups == 1)
-                if x.is_cuda and not split and ebn.supports(x):
-                    y, new_mean, new_var = ebn.episodic_batchnorm(
-                        x, self.weight, self.bias, self.running_mean,
-                        self.running_var, ep_groups, self.eps, self.momentum,
-                        relu)
-                    if stats is not None:
-                        stats[self] = (new_mean, new_var)
-                    return y
-                ebn.episodic_batchnorm.torch_route += 1
-            if (not train and x.dim() == 4 and x.dtype == torch.bfloat16
-                    and x.is_cuda):
-                if ebn.supports(x) and not ebn.records_grad(
-                        x, self.weight, self.bias):
-                    return ebn.episodic_batchnorm_eval(
-                        x, self.weight, self.bias, self.running_mean,
-                        self.running_var, self.eps, relu)
-                ebn.episodic_batchnorm.eval_torch_route += 1
-            c = x.shape[1]
-            acc = torch.promote_types(x.dtype, torch.float32)
-            two_pass = x.dtype == acc
-            xf = x.to(acc)
-            spatial = (1,) * (x.dim() - 2)
-            if not train:
-                mean = self.running_mean.view(1, c, *spatial)
-                var = self.running_var.view(1, c, *spatial)
-                y = (xf - mean) * torch.rsqrt(var + self.eps)
-            else:
-                if x.shape[0] % ep_groups:
-                    raise ValueError(f"batch {x.shape[0]} is not a multiple "
-                                     f"of ep_groups={ep_groups}")
-                xg = xf.reshape(ep_groups, x.shape[0] // ep_groups,
-                                *x.shape[1:])
-                # all axes but group and channel
-                axes = (1,) + tuple(range(3, xg.dim()))
-                bshape = (ep_groups, 1, c) + spatial
-                batch_sum = getattr(stats, "batch_sum", None)
-                if batch_sum is not None and ep_groups == 1:
-                    # the whole batch's statistics, its rows split over ranks
-                    n = batch_sum(torch.full((1, 1), xg[0].numel() / c,
-                                             device=x.device))
-                    mean = batch_sum(xg.sum(dim=axes)) / n
-                    if two_pass:
-                        var = batch_sum(torch.square(
-                            xg - mean.view(bshape)).sum(dim=axes)) / n
-                    else:
-                        ex2 = batch_sum(torch.square(xg).sum(dim=axes)) / n
-                        var = torch.clamp(ex2 - torch.square(mean), min=0.0)
-                    unbiased_factor = n / torch.clamp(n - 1.0, min=1.0)
-                else:
-                    mean = xg.mean(dim=axes)  # [G, C]
-                    if two_pass:
-                        var = torch.square(xg - mean.view(bshape)).mean(
-                            dim=axes)
-                    else:
-                        ex2 = torch.square(xg).mean(dim=axes)
-                        var = torch.clamp(ex2 - torch.square(mean), min=0.0)
-                    n = xg[0].numel() / c
-                    unbiased_factor = n / max(n - 1.0, 1.0)
-                if stats is not None:
-                    stats[self] = ebn.running_averages(
-                        self.running_mean, self.running_var, mean.detach(),
-                        var.detach(), unbiased_factor, self.momentum)
-                y = (xg - mean.view(bshape)) * torch.rsqrt(var.view(bshape)
-                                                           + self.eps)
-                y = y.reshape(xf.shape)
-            w = self.weight.to(x.dtype).to(acc).view(1, c, *spatial)
-            b = self.bias.to(x.dtype).to(acc).view(1, c, *spatial)
-            y = (y * w + b).to(x.dtype)
-            return F.relu(y) if relu else y
+            y, new = ebn.batchnorm(
+                x, self.weight, self.bias, self.running_mean,
+                self.running_var, train=train, groups=ep_groups,
+                batch_sum=getattr(stats, "batch_sum", None), eps=self.eps,
+                momentum=self.momentum, relu=relu)
+            if stats is not None and new is not None:
+                stats[self] = new
+            return y
 
 
 def lecun_normal_(weight: torch.Tensor, fan_in: int, generator=None) -> None:

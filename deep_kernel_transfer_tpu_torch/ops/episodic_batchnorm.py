@@ -2,6 +2,9 @@
 (`episodic_batchnorm`) and in eval mode (`episodic_batchnorm_eval`):
 `csrc/episodic_batchnorm.cu` on the card, the same algorithm in torch ops
 (`_forward_plain`, `_backward_plain`, `_eval_plain`) on the CPU.
+`batchnorm` chooses among these kernels and `batchnorm_torch`, the
+BatchNorm of any dtype and rank in torch ops, for every
+models/backbones.py::EpisodicBatchNorm.
 
 Replaces no Pallas kernel: the JAX package leaves its BatchNorm
 (deep_kernel_transfer_tpu/models/backbones.py:120-139) to XLA's fusion.
@@ -368,9 +371,103 @@ def episodic_batchnorm_eval(x: torch.Tensor, weight: torch.Tensor,
                              running_var, float(eps), bool(relu))
 
 
+def batchnorm_torch(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                    running_mean: torch.Tensor, running_var: torch.Tensor, *,
+                    train: bool, groups: int = 1, batch_sum=None,
+                    eps: float = 1e-5, momentum: float = 0.1,
+                    relu: bool = False):
+    """BatchNorm over the channel axis (dim 1) of x [N, C, ...] of any
+    float dtype in torch ops, then a ReLU where `relu`: (y in x's dtype,
+    the new running mean and var [C] by `running_averages` in training
+    mode, else None). Statistics are float32 for a float32 or
+    lower-precision x, float64 for a float64 one; a float32 or float64 x
+    takes the two-pass variance, a lower-precision one the one-pass
+    E[x^2] - m^2 (JAX backbones.py:125-139). In training mode x is
+    `groups` episodes laid out contiguously, each with its own statistics;
+    `batch_sum`, where given, sums a tensor over the ranks that split the
+    batch between them, and the statistics are then the whole batch's. In
+    eval mode the running mean and var stand in for them."""
+    c = x.shape[1]
+    acc = torch.promote_types(x.dtype, torch.float32)
+    xf = x.to(acc)
+    spatial = (1,) * (x.dim() - 2)
+    new = None
+    if not train:
+        mean = running_mean.view(1, c, *spatial)
+        var = running_var.view(1, c, *spatial)
+        y = (xf - mean) * torch.rsqrt(var + eps)
+    else:
+        if x.shape[0] % groups:
+            raise ValueError(f"batch {x.shape[0]} is not a multiple of "
+                             f"ep_groups={groups}")
+        xg = xf.reshape(groups, x.shape[0] // groups, *x.shape[1:])
+        axes = (1,) + tuple(range(3, xg.dim()))  # all but group and channel
+        bshape = (groups, 1, c) + spatial
+        n = torch.full((1, 1), xg[0].numel() / c, dtype=acc, device=x.device)
+        if batch_sum is None:
+            def average(v):
+                return v.mean(dim=axes)
+        else:  # the whole batch's statistics, its rows split over ranks
+            n = batch_sum(n)
+
+            def average(v):
+                return batch_sum(v.sum(dim=axes)) / n
+        mean = average(xg)  # [G, C]
+        if x.dtype == acc:
+            var = average(torch.square(xg - mean.view(bshape)))
+        else:
+            var = torch.clamp(average(torch.square(xg)) - torch.square(mean),
+                              min=0.0)
+        new = running_averages(running_mean, running_var, mean.detach(),
+                               var.detach(), n / torch.clamp(n - 1.0, min=1.0),
+                               momentum)
+        y = ((xg - mean.view(bshape)) * torch.rsqrt(var.view(bshape) + eps)
+             ).reshape(xf.shape)
+    w = weight.to(x.dtype).to(acc).view(1, c, *spatial)
+    b = bias.to(x.dtype).to(acc).view(1, c, *spatial)
+    y = (y * w + b).to(x.dtype)
+    return (F.relu(y) if relu else y), new
+
+
+def batchnorm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+              running_mean: torch.Tensor, running_var: torch.Tensor, *,
+              train: bool, groups: int = 1, batch_sum=None, eps: float = 1e-5,
+              momentum: float = 0.1, relu: bool = False):
+    """The BatchNorm(+ReLU) of models/backbones.py::EpisodicBatchNorm on
+    the route that takes it: (y, the new running mean and var in training
+    mode, else None). An input that `supports` takes, on a CUDA device,
+    takes the training kernels (`episodic_batchnorm`) unless the ranks
+    split the batch (`batch_sum` with groups 1), and in eval mode the eval
+    kernel (`episodic_batchnorm_eval`) where its output records no
+    gradient. Everything else takes `batchnorm_torch`; of the inputs that
+    `supports` takes, the training ones are counted in
+    `episodic_batchnorm.torch_route` and the CUDA eval ones in
+    `.eval_torch_route`."""
+    if groups != 1:
+        batch_sum = None  # each rank's episodes are its own
+    if supports(x):
+        if train:
+            if x.is_cuda and batch_sum is None:
+                y, new_mean, new_var = episodic_batchnorm(
+                    x, weight, bias, running_mean, running_var, groups, eps,
+                    momentum, relu)
+                return y, (new_mean, new_var)
+            episodic_batchnorm.torch_route += 1
+        elif x.is_cuda:
+            if not records_grad(x, weight, bias):
+                return episodic_batchnorm_eval(
+                    x, weight, bias, running_mean, running_var, eps,
+                    relu), None
+            episodic_batchnorm.eval_torch_route += 1
+    return batchnorm_torch(x, weight, bias, running_mean, running_var,
+                           train=train, groups=groups, batch_sum=batch_sum,
+                           eps=eps, momentum=momentum, relu=relu)
+
+
 episodic_batchnorm.launches = 0  # kernel entry calls, forward and backward
-episodic_batchnorm.torch_route = 0  # bf16 4-D training calls left to torch
+episodic_batchnorm.torch_route = 0  # training calls that `supports` takes,
+# left to torch
 episodic_batchnorm.copies = 0  # layout copies of an input or a gradient
 episodic_batchnorm.eval_launches = 0  # eval kernel entry calls
-episodic_batchnorm.eval_torch_route = 0  # bf16 4-D CUDA eval calls left
-# to torch
+episodic_batchnorm.eval_torch_route = 0  # CUDA eval calls that `supports`
+# takes, left to torch

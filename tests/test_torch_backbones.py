@@ -24,6 +24,7 @@ from deep_kernel_transfer_tpu_torch.methods import base as tbase
 from deep_kernel_transfer_tpu_torch.models import backbones as tbb
 from deep_kernel_transfer_tpu_torch.utils.convert import (
     chw_to_hwc_perm, dkt_params_from_jax, dkt_state_from_jax)
+from torch_test_threads import one_thread  # noqa: F401
 
 B, WAY, SHOT, QUERY, PX = 2, 5, 2, 3, 16
 

@@ -36,19 +36,9 @@ from deep_kernel_transfer_tpu_torch.methods import base as tbase
 from deep_kernel_transfer_tpu_torch.models import backbones as tbb
 from deep_kernel_transfer_tpu_torch.utils.convert import (
     backbone_state_from_jax, flatten_perm)
+from torch_test_threads import one_thread  # noqa: F401
 
 N_IMG = 8
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One torch thread while this module runs: the suite runs several
-    test processes side by side, and torch's default of a thread a core
-    in each of them oversubscribes the machine."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _randomise_bn(tree, rng):

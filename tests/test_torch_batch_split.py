@@ -48,21 +48,12 @@ from deep_kernel_transfer_tpu_torch.models.backbones import preprocess_input
 from deep_kernel_transfer_tpu_torch.parallel.mesh import loss_reduction
 from deep_kernel_transfer_tpu_torch.utils.convert import state_from_jax
 from test_torch_methods_zoo import _randomise_bn
+from torch_test_threads import one_thread  # noqa: F401
 
 B, WAY, SHOT, QUERY, PX = 4, 5, 1, 2, 16
 FLOAT64_LIMIT = 1e-10  # of the gradient's norm
 SPLIT_LIMIT = 1e-4  # float32, whole against halves
 ROUNDING_LIMIT = 2e-2  # float32 against float64
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One torch thread while this module runs (the suite runs several
-    test processes side by side)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _pair(name: str, dtype: str):

@@ -22,6 +22,7 @@ from jax.experimental import pallas as pl
 from deep_kernel_transfer_tpu.ops.pallas import blocked_cholesky as jbc
 from deep_kernel_transfer_tpu_torch.ops import blocked_cholesky as tbc
 from deep_kernel_transfer_tpu_torch.ops.tf32x3 import tf32x3_matmul
+from torch_test_threads import one_thread  # noqa: F401
 
 
 @pytest.fixture

@@ -43,6 +43,7 @@ from deep_kernel_transfer_tpu_torch.data.filelist import EpisodicDataLoader
 from deep_kernel_transfer_tpu_torch.methods import DKT
 from deep_kernel_transfer_tpu_torch.models import Conv4S
 from deep_kernel_transfer_tpu_torch.utils.checkpoint import load_checkpoint
+from torch_test_threads import one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_CLASSES, N_IMG = 6, 20

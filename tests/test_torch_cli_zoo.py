@@ -35,6 +35,7 @@ from deep_kernel_transfer_tpu_torch import test as ttest
 from deep_kernel_transfer_tpu_torch import test_uncertainty as tunc
 from deep_kernel_transfer_tpu_torch import train as ttrain
 from deep_kernel_transfer_tpu_torch.data.feature_cache import init_loader
+from torch_test_threads import one_thread  # noqa: F401
 
 N_CLASSES, N_IMG = 6, 20
 COMMON = ["--dataset=omniglot", "--model=Conv4", "--train_n_way=3",
@@ -86,17 +87,6 @@ def baseline_pp(dataset_cwd):
     args = COMMON + ["--method=baseline++"]
     ttrain.main(args + BASELINE, device="cpu")
     return args, tsave.main(args, device="cpu")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One torch thread while this module runs: the suite runs several
-    test processes side by side, and torch's default of a thread a core
-    in each of them oversubscribes the machine."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def test_protonet_cache_and_jax_test_reads_it(protonet):

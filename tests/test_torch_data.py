@@ -23,6 +23,7 @@ from deep_kernel_transfer_tpu.data import transforms as jtr
 from deep_kernel_transfer_tpu_torch.data import device_dataset as tdd
 from deep_kernel_transfer_tpu_torch.data import filelist as tfl
 from deep_kernel_transfer_tpu_torch.data import transforms as ttr
+from torch_test_threads import one_thread  # noqa: F401
 
 SIZES = [8, 8, 8, 3, 8]  # class 3 is smaller than S+Q = 5
 

@@ -13,6 +13,7 @@ import jax.numpy as jnp
 
 from deep_kernel_transfer_tpu.data import device_aug as jaug
 from deep_kernel_transfer_tpu_torch.data import device_aug as taug
+from torch_test_threads import one_thread  # noqa: F401
 
 CANVAS = 32
 

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 
 from deep_kernel_transfer_tpu_torch.benchmarks import digits_real as tdr
+from torch_test_threads import one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

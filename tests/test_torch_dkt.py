@@ -35,6 +35,7 @@ from deep_kernel_transfer_tpu_torch.methods import DKT
 from deep_kernel_transfer_tpu_torch.models import ConvNet
 from deep_kernel_transfer_tpu_torch.utils.convert import (
     dkt_params_from_jax, dkt_state_from_jax)
+from torch_test_threads import one_thread  # noqa: F401
 
 B, WAY, SHOT, QUERY, PX = 2, 5, 2, 3, 16
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

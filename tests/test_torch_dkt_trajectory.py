@@ -72,6 +72,7 @@ from deep_kernel_transfer_tpu_torch.methods import DKT
 from deep_kernel_transfer_tpu_torch.models import ConvNet
 from deep_kernel_transfer_tpu_torch.models.backbones import preprocess_input
 from deep_kernel_transfer_tpu_torch.utils import convert
+from torch_test_threads import one_thread  # noqa: F401
 
 WAY, SHOT = 5, 1
 FORWARD = 1e-5  # tests/test_pallas_mll.py:39
@@ -236,16 +237,6 @@ def _tiny_params(example):
               feature_dtype="float32")
     return _np_tree(jm.init(jax.random.PRNGKey(0),
                             jnp.asarray(example)).params)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One torch thread while this module runs (the suite runs several
-    test processes side by side)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _run_pair(dtype: str, fused: bool):

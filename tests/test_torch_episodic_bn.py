@@ -1,6 +1,7 @@
 """The episodic BatchNorm op (ops/episodic_batchnorm.py) against the
-module's torch route (models/backbones.py::EpisodicBatchNorm) on bf16
-inputs.
+module's torch route (models/backbones.py::EpisodicBatchNorm, which
+ops/episodic_batchnorm.py::batchnorm sends to `batchnorm_torch` on the CPU)
+on bf16 inputs, and the route that `batchnorm` chooses.
 
 The op's CPU route is its plain version, which repeats the kernels'
 algorithm in torch ops (split partials, the fixed-order finalize, the
@@ -19,14 +20,7 @@ import torch
 from deep_kernel_transfer_tpu_torch.models.backbones import (
     BatchStats, EpisodicBatchNorm)
 from deep_kernel_transfer_tpu_torch.ops import episodic_batchnorm as ebn
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    prev = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(prev)
+from torch_test_threads import one_thread  # noqa: F401
 
 
 def _inputs(c: int, groups: int, channels_last: bool, seed: int = 0,
@@ -176,6 +170,64 @@ def test_routes_and_counters_on_the_cpu():
     with pytest.raises(ValueError):
         ebn.episodic_batchnorm(x.to(torch.bfloat16), bn.weight, bn.bias,
                                *running, 3)
+
+
+ROUTE_CASES = {  # name: (dtype, 2-D, train, split batch, counted)
+    "bf16_episodes": (torch.bfloat16, False, True, False, True),
+    "bf16_split": (torch.bfloat16, False, True, True, True),
+    "bf16_eval": (torch.bfloat16, False, False, False, False),
+    "bf16_2d": (torch.bfloat16, True, True, False, False),
+    "f32": (torch.float32, False, True, False, False),
+    "f64": (torch.float64, False, True, False, False),
+    "f64_split": (torch.float64, False, True, True, False)}
+
+
+@pytest.mark.parametrize("case", list(ROUTE_CASES))
+def test_batchnorm_takes_the_torch_ops_on_the_cpu(case):
+    """ops.batchnorm, which chooses the route of every EpisodicBatchNorm,
+    takes `batchnorm_torch` for a CPU tensor: in training mode per episode
+    and for the split batch (`batch_sum`, here two ranks holding the same
+    rows), in eval mode, for f32, f64 and 2-D inputs. The module, the
+    route and `batchnorm_torch` give the same output, gradients and
+    running statistics bit for bit; only a training input that `supports`
+    takes is counted as the torch route, and no kernel is launched."""
+    dtype, flat, train, split, counted = ROUTE_CASES[case]
+    x, bn, dy = _inputs(16, 1 if split else 2, False)
+    x, dy = x.to(dtype), dy.to(dtype)
+    if flat:
+        x, dy = x[:, :, 0, 0], dy[:, :, 0, 0]
+    groups = 1 if split or not train else 2
+    batch_sum = (lambda t: t + t) if split else None
+    names = ("launches", "torch_route", "copies", "eval_launches",
+             "eval_torch_route")
+
+    def counters():
+        return [getattr(ebn.episodic_batchnorm, k) for k in names]
+
+    def run(fn):
+        xr = x.detach().requires_grad_(True)
+        y, new = fn(xr)
+        grads = torch.autograd.grad(y, (xr, bn.weight, bn.bias), dy)
+        return (y,) + grads + tuple(new or ())
+
+    def module(xr):
+        stats = BatchStats(batch_sum) if train else None
+        y = bn(xr, train, groups, stats, relu=True)
+        return y, stats and stats[bn]
+
+    args = (bn.weight, bn.bias, bn.running_mean, bn.running_var)
+    kw = dict(train=train, groups=groups, batch_sum=batch_sum, eps=bn.eps,
+              momentum=bn.momentum, relu=True)
+    before = counters()
+    got = [run(module), run(lambda xr: ebn.batchnorm(xr, *args, **kw))]
+    assert [b - a for a, b in zip(before, counters())] == [
+        0, 2 * counted, 0, 0, 0]
+    want = run(lambda xr: ebn.batchnorm_torch(xr, *args, **kw))
+    assert len(want) == (6 if train else 4)
+    for route in got:
+        assert all(torch.equal(a, b) and a.dtype == b.dtype
+                   for a, b in zip(route, want, strict=True))
+    assert ebn.supports(x) == (dtype == torch.bfloat16 and not flat)
 
 
 @pytest.mark.parametrize("c", [64, 2048])

@@ -23,6 +23,7 @@ from jax.experimental import pallas as pl
 
 from deep_kernel_transfer_tpu.ops.pallas import fused_mll as jfm
 from deep_kernel_transfer_tpu_torch.ops import fused_mll as tfm
+from torch_test_threads import one_thread  # noqa: F401
 
 NOISE = 0.1
 SHAPES = [(30, 96), (100, 256), (128, 160)]  # (N, D), B=3 episodes, W=5 ways

@@ -21,6 +21,7 @@ from deep_kernel_transfer_tpu.gp import kernels as jkernels
 from deep_kernel_transfer_tpu_torch.gp import ExactGP, GaussianLikelihood
 from deep_kernel_transfer_tpu_torch.gp import exact as texact
 from deep_kernel_transfer_tpu_torch.gp import kernels as tkernels
+from torch_test_threads import one_thread  # noqa: F401
 
 SIZES = [25, 85, 100]
 KINDS = ["bncossim", "linear"]

@@ -30,6 +30,7 @@ from deep_kernel_transfer_tpu_torch.gp import kernels as tkernels
 from deep_kernel_transfer_tpu_torch.methods import DKT, dkt as tdkt
 from deep_kernel_transfer_tpu_torch.models import ConvNet
 from deep_kernel_transfer_tpu_torch.utils.convert import dkt_params_from_jax
+from torch_test_threads import one_thread  # noqa: F401
 
 KINDS = ["rbf", "matern", "poli1", "poli2"]
 SIZES = [25, 85, 100]

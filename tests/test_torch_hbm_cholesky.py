@@ -26,6 +26,7 @@ from deep_kernel_transfer_tpu_torch.benchmarks import hbm_memory_demo as demo
 from deep_kernel_transfer_tpu_torch.ops import hbm_cholesky as thc
 from deep_kernel_transfer_tpu_torch.ops.tf32x3 import (tf32_round, tf32_split,
                                                        tf32x3_matmul)
+from torch_test_threads import one_thread  # noqa: F401
 
 B, N, D = 2, 384, 128  # the shape of tests/test_pallas_mll.py:141
 

@@ -39,6 +39,7 @@ from deep_kernel_transfer_tpu_torch.methods import DKT
 from deep_kernel_transfer_tpu_torch.models import ConvNet
 from deep_kernel_transfer_tpu_torch.utils import metrics as tmetrics
 from deep_kernel_transfer_tpu_torch.utils.convert import dkt_params_from_jax
+from torch_test_threads import one_thread  # noqa: F401
 
 B, WAY, SHOT, QUERY, PX = 4, 5, 2, 3, 16
 STEPS = 5

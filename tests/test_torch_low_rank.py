@@ -34,6 +34,7 @@ from deep_kernel_transfer_tpu_torch.gp.exact import init_batched
 from deep_kernel_transfer_tpu_torch.methods import DKT
 from deep_kernel_transfer_tpu_torch.models import ConvNet
 from deep_kernel_transfer_tpu_torch.utils.convert import dkt_params_from_jax
+from torch_test_threads import one_thread  # noqa: F401
 
 N, D, M = 256, 32, 40
 NOISE = 0.1

@@ -27,6 +27,7 @@ from deep_kernel_transfer_tpu.data import transforms as jtr
 from deep_kernel_transfer_tpu_torch import native as tnative
 from deep_kernel_transfer_tpu_torch.data import device_dataset as tdd
 from deep_kernel_transfer_tpu_torch.data import transforms as ttr
+from torch_test_threads import one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

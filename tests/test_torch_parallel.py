@@ -48,20 +48,11 @@ from deep_kernel_transfer_tpu_torch.parallel import (
 from deep_kernel_transfer_tpu_torch.parallel.mesh import free_port
 from deep_kernel_transfer_tpu_torch.utils.convert import (
     dkt_params_from_jax, dkt_state_from_jax)
+from torch_test_threads import one_thread  # noqa: F401
 
 B, WAY, SHOT, QUERY, PX = 8, 3, 2, 3, 16
 CPU = torch.device("cpu")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("OMP_NUM_THREADS", "1")  # the spawned ranks'
-        yield
-    torch.set_num_threads(threads)
 
 
 def _model():
@@ -80,7 +71,6 @@ def _sharded_step(x: np.ndarray, state: dict) -> dict:
     rank 0) the loss, the averaged gradients, the weights after the step,
     the accuracies and the largest difference of any weight between the
     ranks."""
-    torch.set_num_threads(1)
     mesh = make_mesh(2, "cpu")
     model = _model().init(torch.from_numpy(x[0]))  # each rank draws its own
     if mesh.rank == 0:
@@ -331,8 +321,7 @@ def test_train_cli_under_torchrun(one_rank, tmp_path):
     1-rank run's losses again."""
     script = tmp_path / "rank.py"
     script.write_text(
-        f"import sys\nsys.path.insert(0, {REPO!r})\nimport torch\n"
-        f"torch.set_num_threads(1)\n"
+        f"import sys\nsys.path.insert(0, {REPO!r})\n"
         f"from deep_kernel_transfer_tpu_torch import train\n"
         f"train.main({TRAIN + ['--n_devices=2']!r}, device='cpu')\n")
     out = subprocess.run(

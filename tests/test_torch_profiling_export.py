@@ -29,14 +29,7 @@ from deep_kernel_transfer_tpu_torch.train_regression import (
     init_regression_method)
 from deep_kernel_transfer_tpu_torch.utils.checkpoint import load_checkpoint
 from deep_kernel_transfer_tpu_torch.utils.profiling import annotate, trace
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from torch_test_threads import one_thread  # noqa: F401
 
 
 def test_annotate_is_usable_as_context():

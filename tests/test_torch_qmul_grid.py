@@ -34,6 +34,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)  # for a run as a script
 
 from deep_kernel_transfer_tpu_torch.benchmarks import regression_real  # noqa
+from torch_test_threads import one_thread  # noqa: F401
 
 
 def _jax_script(name: str):

@@ -48,6 +48,7 @@ from deep_kernel_transfer_tpu_torch.utils.convert import (
     backbone_state_from_jax, flatten_perm, params_from_jax)
 from sines_tpu import common as jcommon
 from sines_tpu import train_MAML as jmaml
+from torch_test_threads import one_thread  # noqa: F401
 
 SHRINK = 0.02  # image scale of the DKT comparisons on Conv3 (above)
 
@@ -60,16 +61,6 @@ def _exact_sq_dist(x1, x2):
 def exact_jax_sq_dist(monkeypatch):
     """The JAX kernels' sq_dist as the exact elementwise sum (see above)."""
     monkeypatch.setattr(jkernels, "sq_dist", _exact_sq_dist)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One torch thread while this module runs: the suite runs several
-    test processes side by side."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _np(tree):

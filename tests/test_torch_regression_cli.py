@@ -37,20 +37,13 @@ from deep_kernel_transfer_tpu_torch import train_regression as ttrain
 from deep_kernel_transfer_tpu_torch.data import qmul as tqmul
 from deep_kernel_transfer_tpu_torch.io_utils import parse_args_regression
 from deep_kernel_transfer_tpu_torch.utils.convert import state_from_jax
+from torch_test_threads import one_thread  # noqa: F401
 
 FLAGS = {"rbf": ["--method=DKT"], "spectral": ["--method=DKT", "--spectral"],
          "transfer": ["--method=transfer"]}
 CKPT = {"rbf": "Conv3_DKT", "spectral": "Conv3_DKT_spectral",
         "transfer": "Conv3_transfer"}
 TEST = ["--seed=3", "--n_test_epochs=4", "--n_support=5"]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _exact_sq_dist(x1, x2):

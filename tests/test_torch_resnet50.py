@@ -28,6 +28,7 @@ from dkt_bench.reference import common, dkt as ref, trunk_ResNet50
 from deep_kernel_transfer_tpu_torch.methods.dkt import DKT
 from deep_kernel_transfer_tpu_torch.models.backbones import model_dict
 from test_torch_spans import BACKWARD, _host_events, _spans, _within
+from torch_test_threads import one_thread  # noqa: F401
 
 B, WAY, SHOT, QUERY, PX = 2, 5, 1, 1, 32
 NOISE, JITTER = 0.1, 1e-6
@@ -53,14 +54,6 @@ TOL = {"float64": {"features": 1e-12, "loss": 1e-8, "grad": 1e-8,
                    "running": 1e-12},
        "float32": {"features": 3e-4, "loss": 1e-6, "grad": 0.05,
                    "running": 1e-4}}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _gen(seed: int) -> torch.Generator:

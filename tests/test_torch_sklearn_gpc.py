@@ -43,19 +43,10 @@ from deep_kernel_transfer_tpu_torch.benchmarks.sklearn_gpc import \
 from deep_kernel_transfer_tpu_torch.methods import DKT
 from deep_kernel_transfer_tpu_torch.models import ConvNet
 from deep_kernel_transfer_tpu_torch.utils.convert import dkt_params_from_jax
+from torch_test_threads import one_thread  # noqa: F401
 
 WAY, QUERY = 5, 15
 PROBA = 1e-10
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One torch thread while this module runs (the suite runs several
-    test processes side by side)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _unit(x):

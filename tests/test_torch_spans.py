@@ -21,19 +21,12 @@ from deep_kernel_transfer_tpu_torch.models import ConvNet
 from deep_kernel_transfer_tpu_torch.models.backbones import EpisodicBatchNorm
 from deep_kernel_transfer_tpu_torch.utils.profiling import (SPAN_PREFIX,
                                                             annotate)
+from torch_test_threads import one_thread  # noqa: F401
 
 B, WAY, SHOT, QUERY, PX, CANVAS = 2, 5, 2, 3, 16, 19
 BACKWARD = "autograd::engine::evaluate_function: "
 STEP_SPANS = {"step": None, "forward": "step", "backward": "step",
               "update": "step", "trunk": "forward", "gp": "forward"}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _model(fused: bool) -> DKT:

@@ -60,21 +60,12 @@ from deep_kernel_transfer_tpu_torch.models import ConvNet, ResNet10
 from deep_kernel_transfer_tpu_torch.utils.convert import (dkt_params_from_jax,
                                                           dkt_state_from_jax,
                                                           flatten_perm)
+from torch_test_threads import one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WAY, SHOT, QUERY = 5, 5, 15
 RUNNERS = (profile_step, profile_resnet, gp_probe_ab, peak_sweep,
            train_cli_e2e, dkt_sweep)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One torch thread while this module runs (the suite runs several
-    test processes side by side)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -69,6 +69,7 @@ from test_torch_methods_zoo import (PX as ZOO_PX, QUERY as ZOO_QUERY,
                                     SHOT as ZOO_SHOT, WAY as ZOO_WAY,
                                     _check_grads, _close, _episodic_pair,
                                     _jax_params, _load, _randomise_bn)
+from torch_test_threads import one_thread  # noqa: F401
 
 B, WAY, SHOT, QUERY, PX = 8, 3, 2, 3, 16
 ZOO_B = 4  # two episodes a rank; MAML's n_task
@@ -78,16 +79,6 @@ LSTM_WEIGHTS = ("G_encoder.weight_ih_l0", "G_encoder.weight_hh_l0",
                 "G_encoder.weight_hh_l0_reverse", "FCE.lstmcell.weight_ih",
                 "FCE.lstmcell.weight_hh")
 CPU = torch.device("cpu")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("OMP_NUM_THREADS", "1")  # the spawned ranks'
-        yield
-    torch.set_num_threads(threads)
 
 
 def _dkt():
@@ -135,7 +126,6 @@ def _dp_ranks(x, state, zoo, base, ckpt):
     (its checkpoint saved by rank 0 to `ckpt`); each zoo family's sharded
     step and sharded eval; BaselineTrain's batch-sharded step. Returns (on
     rank 0) their losses, gradients, states and accuracies."""
-    torch.set_num_threads(1)
     mesh = make_mesh(2, "cpu")
     model = _dkt().init(torch.from_numpy(x[0]))  # each rank draws its own
     if mesh.rank == 0:
@@ -176,7 +166,6 @@ def _tp_ranks(x, state, zoo, data_file, ckpt):
     checkpoint; the mesh's episode functions; each zoo family's
     tensor-parallel step (min_size 1 << 10) with its sharded names and
     bytes. Returns (on rank 0) what each rank saw."""
-    torch.set_num_threads(1)
     mesh = make_mesh_2d(2, 2, "cpu")
     model = _dkt().init(torch.from_numpy(x[0]))
     if mesh.rank == 0:

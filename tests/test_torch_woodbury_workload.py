@@ -42,17 +42,10 @@ from deep_kernel_transfer_tpu_torch.models import Conv4S
 from deep_kernel_transfer_tpu_torch.ops.fused_mll import fused_linear_mll
 from deep_kernel_transfer_tpu_torch.utils.convert import (
     dkt_params_from_jax, dkt_state_from_jax)
+from torch_test_threads import one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WAY, SHOT, QUERY, PX, B = 20, 15, 16, 28, 2
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
