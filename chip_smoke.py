@@ -449,6 +449,7 @@ EVAL_BN_SHAPES = (
     ("ResNet50 stage 4 BN3", 1600, 2048, 7, False, 3),
 )
 EVAL_BN_BYTES = 4  # bf16: x in, y out
+EVAL_POOL_BYTES = 2.5  # bf16: x in, a quarter of it out
 PROTOCOL_IMAGES = 600 * 5 * 20  # a 600-episode 5w5s15q protocol
 
 
@@ -685,6 +686,123 @@ def check_episodic_batchnorm_eval(device) -> dict:
             "library_ms": acc["library"],
             "resnet50_ms": sums["ResNet50"]["kernel"],
             "resnet50_bound_ms": sums["ResNet50"]["bound"]}
+
+
+def check_episodic_batchnorm_eval_pool(device) -> dict:
+    """The eval ConvBlock epilogue (`episodic_bn_eval_epilogue` through the
+    module's `EpisodicBatchNorm.eval_epilogue`, the route of an eval
+    ConvBlock on the card) at Conv4's eval batch (3200 images, 84/42/21/10
+    px, C = 64, a conv output made without its bias, which the pass adds)
+    against today's chain on the card (the bias added in bf16, as ATen adds
+    it after cuDNN, the eval kernel's BN+ReLU, max_pool2d): bit-equal to
+    it, within one bf16 rounding of the plain version, two calls
+    bit-equal, one pooled launch a call and no other; ms a call by CUDA
+    events in turns with the chain, beside the bound of 2.5 bytes an
+    element at 3.35 TB/s. Unpooled (a block that does not pool) the same
+    pass against the bias add and the eval kernel, bit-equal, one eval
+    launch. Prints the batch's and the protocol's sums and returns the
+    batch's entry."""
+    import torch.nn.functional as F
+
+    from deep_kernel_transfer_tpu_torch.models.backbones import \
+        EpisodicBatchNorm
+    from deep_kernel_transfer_tpu_torch.ops import episodic_batchnorm as ebn
+
+    gen = torch.Generator(device=device).manual_seed(23)
+    counter = ebn.episodic_batchnorm
+    names = ("eval_pool_launches", "eval_launches", "eval_torch_route",
+             "copies")
+    acc = {"kernel": 0.0, "library": 0.0, "bound": 0.0}
+    worst = 0.0
+    for label, images, c, px, relu, layers in EVAL_BN_SHAPES[:4]:
+        x = (torch.randn((images, px, px, c), generator=gen, device=device)
+             * 1.5 + 0.3).to(torch.bfloat16).permute(0, 3, 1, 2)
+        conv_bias = 0.4 * torch.randn(c, generator=gen, device=device)
+        bn = EpisodicBatchNorm(c).to(device)
+        with torch.no_grad():
+            sign = torch.where(torch.arange(c, device=device) % 3 == 1,
+                               -1.0, 1.0)
+            bn.weight.copy_(sign * (1.0 + 0.3 * torch.rand(
+                c, generator=gen, device=device)))
+            bn.bias.copy_(0.2 * torch.randn(c, generator=gen, device=device))
+            bn.running_mean.copy_(0.3 + 0.1 * torch.randn(
+                c, generator=gen, device=device))
+            bn.running_var.copy_(2.25 * (1.0 + 0.1 * torch.rand(
+                c, generator=gen, device=device)))
+        bias16 = conv_bias.to(torch.bfloat16).view(1, c, 1, 1)
+
+        @torch.no_grad()
+        def kernel(pool=True):
+            return bn.eval_epilogue(x, conv_bias, pool)
+
+        @torch.no_grad()
+        def chain(pool=True):
+            """Today's chain: the bias add, the eval BN+ReLU, the pool."""
+            y = bn(x + bias16, False, 1, None, relu=relu)
+            return F.max_pool2d(y, 2, 2) if pool else y
+
+        for pool in (True, False):
+            for name in names:
+                setattr(counter, name, 0)
+            got, again = kernel(pool), kernel(pool)
+            torch.cuda.synchronize()
+            counts = tuple(getattr(counter, name) for name in names)
+            same = torch.equal(got, again)
+            del again
+            want = chain(pool)
+            with torch.no_grad():
+                plain = (ebn._eval_pool_plain if pool else ebn._eval_plain)(
+                    x, bn.weight, bn.bias, bn.running_mean, bn.running_var,
+                    bn.eps, relu, conv_bias)
+            equal = torch.equal(got, want)
+            ulps, differ = ulps_apart(got, want)
+            ulps_p, differ_p = ulps_apart(got, plain)
+            del got, want, plain
+            kind = "pooled" if pool else "unpooled"
+            print(f"episodic_batchnorm_eval {kind} {label} ({images}x{c}x"
+                  f"{px}x{px}, conv bias added in the pass): against the "
+                  f"chain bit-equal {equal}, {ulps:.3f} of a bf16 rounding "
+                  f"at most, {100 * differ:.4f}% of elements differ; against "
+                  f"the plain version {ulps_p:.3f}, {100 * differ_p:.4f}%; "
+                  f"bit-equal twice {same}; pooled launches, eval launches, "
+                  f"eval torch route, copies {counts} (want "
+                  f"({2 * pool}, {2 * (not pool)}, 0, 0))", flush=True)
+            if (not (same and equal) or ulps_p > 1.0
+                    or counts != (2 * pool, 2 * (not pool), 0, 0)):
+                raise AssertionError(f"episodic_batchnorm_eval {kind} "
+                                     f"{label} failed")
+            worst = max(worst, ulps)
+        times = ms_in_turns({"kernel": kernel, "library": chain},
+                            rounds=3, iters=5, warmup=1)
+        bound = images * c * px * px * EVAL_POOL_BYTES / PEAK_BYTES * 1e3
+        print(f"episodic_batchnorm_eval pooled {label}, median (min-max) of "
+              f"turns: " + ", ".join(f"{k} {v[0]:.4f} ({v[1]:.4f}-{v[2]:.4f})"
+                                     f" ms" for k, v in times.items())
+              + f" (library: bias add, eval BN+ReLU, max_pool2d), bound "
+              f"{bound:.4f} ms, kernel at {100 * bound / times['kernel'][0]:.1f}"
+              f"% of it", flush=True)
+        for k in ("kernel", "library"):
+            acc[k] += layers * times[k][0]
+        acc["bound"] += layers * bound
+        del x, bn
+        torch.cuda.empty_cache()
+    per_protocol = PROTOCOL_IMAGES / EVAL_BN_SHAPES[0][1]
+    print(f"episodic_batchnorm_eval pooled: Conv4's eval batch of 3200 "
+          f"images: kernel {acc['kernel']:.3f} ms, chain {acc['library']:.3f}"
+          f" ms, bound {acc['bound']:.3f} ms (kernel at "
+          f"{100 * acc['bound'] / acc['kernel']:.1f}%); a 600-episode "
+          f"protocol: kernel {per_protocol * acc['kernel']:.1f} ms, chain "
+          f"{per_protocol * acc['library']:.1f} ms, bound "
+          f"{per_protocol * acc['bound']:.1f} ms", flush=True)
+    return {"name": "episodic_batchnorm_eval_pool", "route": "cuda",
+            "source": "deep_kernel_transfer_tpu_torch/csrc/"
+                      "episodic_batchnorm.cu",
+            "replaces": "none: XLA fuses the JAX ConvBlock's bias, "
+                        "BatchNorm, ReLU and pool (models/backbones.py:"
+                        "120-139, 159-181)",
+            "launches": None, "max_abs_err": worst, "ms": acc["kernel"],
+            "bound_ms": acc["bound"], "bound_by": "bytes",
+            "library_ms": acc["library"]}
 
 
 def spd_matrix(b: int, n: int, device) -> torch.Tensor:
@@ -1102,27 +1220,30 @@ def reset_batchnorm_counts() -> None:
         episodic_batchnorm as ebn
 
     ebn.launches = ebn.torch_route = ebn.copies = 0
-    ebn.eval_launches = ebn.eval_torch_route = 0
+    ebn.eval_launches = ebn.eval_torch_route = ebn.eval_pool_launches = 0
 
 
-def check_eval_batchnorm_route(label: str, batches: int, layers: int) -> int:
-    """Every 4-D bf16 eval BatchNorm of `batches` eval batches took the eval
-    kernel: one launch a layer a batch, none left to torch, no layout copy
-    and no training kernel (counted from 0 by the caller). Returns the
-    eval launches."""
+def check_eval_batchnorm_route(label: str, batches: int, pooled: int,
+                               unpooled: int) -> tuple[int, int]:
+    """Every 4-D bf16 eval BatchNorm of `batches` eval batches took an eval
+    kernel: a pooled ConvBlock's the pooled pass, every other the eval
+    apply, one launch a layer a batch; none left to torch, no layout copy
+    and no training kernel (counted from 0 by the caller). Returns (eval
+    launches, pooled launches)."""
     from deep_kernel_transfer_tpu_torch.ops.episodic_batchnorm import \
         episodic_batchnorm as ebn
 
-    got = (ebn.eval_launches, ebn.eval_torch_route, ebn.copies,
-           ebn.launches, ebn.torch_route)
-    print(f"{label}: episodic_batchnorm eval launches {got[0]} (want "
-          f"{batches} batches x {layers} layers), eval torch route {got[1]}, "
-          f"layout copies {got[2]}, training launches {got[3]}, training "
-          f"torch route {got[4]}", flush=True)
-    if got != (batches * layers, 0, 0, 0, 0):
+    got = (ebn.eval_pool_launches, ebn.eval_launches, ebn.eval_torch_route,
+           ebn.copies, ebn.launches, ebn.torch_route)
+    print(f"{label}: episodic_batchnorm pooled eval launches {got[0]} (want "
+          f"{batches} batches x {pooled} layers), eval launches {got[1]} "
+          f"(want {batches} x {unpooled}), eval torch route {got[2]}, layout "
+          f"copies {got[3]}, training launches {got[4]}, training torch "
+          f"route {got[5]}", flush=True)
+    if got != (batches * pooled, batches * unpooled, 0, 0, 0, 0):
         raise AssertionError(f"{label}: the trunk's eval BatchNorms did not "
-                             f"all take the eval kernel: {got}")
-    return got[0]
+                             f"all take the eval kernels: {got}")
+    return got[1], got[0]
 
 
 def drive_main_path(device, card: str) -> tuple[dict, float]:
@@ -1174,8 +1295,9 @@ def drive_main_path(device, card: str) -> tuple[dict, float]:
     reset_batchnorm_counts()
     acc = model.batch_correct(batches[1])
     torch.cuda.synchronize()
-    launches["episodic_batchnorm_eval"] = check_eval_batchnorm_route(
-        "main path eval batch", 1, 4)
+    (launches["episodic_batchnorm_eval"],
+     launches["episodic_batchnorm_eval_pool"]) = check_eval_batchnorm_route(
+        "main path eval batch", 1, 4, 0)
     if acc.shape != (MAIN_B,) or not bool(((acc >= 0) & (acc <= 100)).all()):
         raise AssertionError(f"bad accuracies {acc}")
     print(f"batch_correct: mean query accuracy {float(acc.mean()):.2f}% over "
@@ -3337,6 +3459,9 @@ def main() -> int:
     kernels["episodic_batchnorm"] = check_episodic_batchnorm(device)
     torch.cuda.empty_cache()
     kernels["episodic_batchnorm_eval"] = check_episodic_batchnorm_eval(device)
+    torch.cuda.empty_cache()
+    kernels["episodic_batchnorm_eval_pool"] = \
+        check_episodic_batchnorm_eval_pool(device)
     torch.cuda.empty_cache()
 
     # 5. the main paths: DKT meta-training, the GP memory regime, the CLIs,

@@ -22,7 +22,7 @@
 // and weight gradients. The ReLU mask is recomputed from x, scale and shift
 // by the forward's own arithmetic, so y is never read back.
 //
-// Seven kernels, three entry points, all on the caller's stream:
+// Eight kernels, four entry points, all on the caller's stream:
 //   forward:  episodic_bn_stats     one read of x: f32 partial sums
 //             episodic_bn_finalize  mean, var, rstd, scale, shift
 //             episodic_bn_apply     one read of x, one write of y
@@ -32,10 +32,16 @@
 //   eval:     episodic_bn_eval_finalize  scale, shift from the running
 //                                        mean and var
 //             episodic_bn_apply     one read of x, one write of y
+//   eval ConvBlock: episodic_bn_eval_finalize, then
+//             episodic_bn_eval_epilogue  one read of x, one write of y or of
+//                                        its 2x2 max-pool
 // In eval mode the normalisation is one per-channel affine map, with the
 // running mean and var in place of the batch's, over the whole batch as
 // one group: G = 1, and the row split is the caller's, since no partial
-// sums tie it to the training kernels' split.
+// sums tie it to the training kernels' split. A ConvBlock's convolution
+// runs without its bias b_c there, and the epilogue adds it, rounded to
+// bf16 as ATen's separate bias pass after cuDNN rounds it: one pass gives
+// the chain's output (bias add, BatchNorm, ReLU, max-pool) bit for bit.
 // A streaming CTA takes one episode and a run of `per_split` rows of it, all
 // C channels: a thread owns 8 neighbouring channels (one 16-byte access) and
 // walks the rows C / 8 threads apart, four rows in flight, so its channels'
@@ -50,7 +56,10 @@
 // the statistics must be complete before the apply pass): at 3.35 TB/s the
 // Conv4 step's 2.01e9 elements take 9.6 ms, against the 6.0 ms bound.
 // In eval mode the bound is x in and y out, 4 bytes an element, and the one
-// apply pass moves just that.
+// apply pass moves just that. Where the block pools, the least is x in and
+// the pooled y out, 2.5 bytes an element, in place of the 10.5 that the
+// bias add (4), the apply (4) and torch's max-pool (2.5) moved as three
+// passes; episodic_bn_eval_epilogue moves just the 2.5.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -67,6 +76,9 @@ constexpr int kFinalizeThreads = 256;
 // backward kernels keep six coefficients a channel in registers.
 constexpr int kStreamCtas = 4;
 constexpr int kGradCtas = 2;
+// The eval epilogue holds two 2x2 windows (eight 16-byte vectors) in
+// flight a thread: 85 registers a thread.
+constexpr int kEpilogueCtas = 3;
 
 // A streaming CTA's shape: `lanes` threads across a row, `rows` rows at once.
 struct Tile {
@@ -438,6 +450,106 @@ episodic_bn_eval_finalize(const float* __restrict__ weight,
   stats[4 * c + ch] = fmaf(-mean, scale, round_bf16(bias[ch]));
 }
 
+// The larger of m and v, v where it is NaN, as torch's max_pool2d takes it.
+__device__ __forceinline__ float pool_max(float m, float v) {
+  return (v > m || v != v) ? v : m;
+}
+
+// The eval epilogue of a convolution made without its bias b_c, in one
+// pass: bf16(x + bf16(b_c)) (ATen's bias add, rounded as it rounds), the
+// eval BatchNorm's affine map and the ReLU in f32, and with kPool the 2x2
+// max-pool of stride 2: x [n, h, w, C] in, y [n, h / 2, w / 2, C] out
+// (floor sizes: an odd map's last row and column are not read); without,
+// y [n, h, w, C]. The walk's rows are output pixels: a thread owns 8
+// channels of one, loads its window's 16-byte vectors (four, or one), and
+// stores the rounded max as one 16-byte vector. The max comes after the
+// map, whose scale may be negative; rounding to bf16 is monotone, so
+// rounding the max is the max of the rounded values, and the window is
+// walked in max_pool2d's order, so ties resolve alike. Neighbouring threads
+// of a warp take neighbouring pooled pixels of one row, so each load
+// instruction reads whole 32-byte sectors and a window's two loads of a row
+// read 256 contiguous bytes. conv_bias null adds nothing.
+template <bool kRelu, bool kPool>
+__global__ void __launch_bounds__(kThreads, kEpilogueCtas)
+episodic_bn_eval_epilogue(const __nv_bfloat16* __restrict__ x,
+                          __nv_bfloat16* __restrict__ y,
+                          const float* __restrict__ stats,
+                          const float* __restrict__ conv_bias, int h, int w,
+                          int c, long long rows, long long per_split) {
+  constexpr int kWindow = kPool ? 4 : 1;
+  const Walk wk = walk_of(rows, c, per_split);
+  float scale[kVec], shift[kVec], add[kVec];
+  coeffs(stats + 3 * c, c, wk, scale);
+  coeffs(stats + 4 * c, c, wk, shift);
+#pragma unroll
+  for (int i = 0; i < kVec; ++i)
+    add[i] = conv_bias == nullptr ? 0.f
+                                  : round_bf16(conv_bias[wk.lane * kVec + i]);
+  const unsigned ho = h / 2, wo = w / 2;
+  const long long down = (long long)w * c;  // one input row further
+  const __nv_bfloat16* src = x + wk.offset;
+  __nv_bfloat16* dst = y + wk.offset;
+  const int step = wk.tile.rows;
+  // The offset of output pixel r's window's top-left element (pooled:
+  // rows < 2^31).
+  auto corner = [&](long long r) -> long long {
+    if (!kPool) return r * c;
+    const unsigned p = (unsigned)r, q = p / wo, j = p - q * wo;
+    const unsigned image = q / ho, i = q - image * ho;
+    return (((long long)image * h + 2 * i) * w + 2 * j) * c;
+  };
+  auto window = [&](long long r, uint4* raw) {
+    const __nv_bfloat16* p = src + corner(r);
+    raw[0] = load(p);
+    if (kPool) {
+      raw[1] = load(p + c);
+      raw[2] = load(p + down);
+      raw[3] = load(p + down + c);
+    }
+  };
+  auto out = [&](const uint4* raw) {
+    float m[kVec];
+#pragma unroll
+    for (int k = 0; k < kWindow; ++k) {
+      float v[kVec];
+      unpack(raw[k], v);
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) {
+        v[i] = affine(round_bf16(v[i] + add[i]), scale[i], shift[i]);
+        if (kRelu) v[i] = relu(v[i]);
+        m[i] = k == 0 ? v[i] : pool_max(m[i], v[i]);
+      }
+    }
+    return pack(m);
+  };
+  long long r = wk.begin;
+  for (; r + step < wk.end; r += 2 * step) {  // two windows in flight
+    uint4 raw[2][kWindow];
+    window(r, raw[0]);
+    window(r + step, raw[1]);
+    *reinterpret_cast<uint4*>(dst + r * c) = out(raw[0]);
+    *reinterpret_cast<uint4*>(dst + (r + step) * c) = out(raw[1]);
+  }
+  for (; r < wk.end; r += step) {
+    uint4 raw[kWindow];
+    window(r, raw);
+    *reinterpret_cast<uint4*>(dst + r * c) = out(raw);
+  }
+}
+
+template <bool kRelu>
+void launch_epilogue(bool pool, int splits, int threads, cudaStream_t s,
+                     const __nv_bfloat16* x, __nv_bfloat16* y,
+                     const float* stats, const float* conv_bias, int h, int w,
+                     int c, long long rows, long long per_split) {
+  if (pool)
+    episodic_bn_eval_epilogue<kRelu, true><<<dim3(splits), threads, 0, s>>>(
+        x, y, stats, conv_bias, h, w, c, rows, per_split);
+  else
+    episodic_bn_eval_epilogue<kRelu, false><<<dim3(splits), threads, 0, s>>>(
+        x, y, stats, conv_bias, h, w, c, rows, per_split);
+}
+
 bool valid(int groups, long long rows, int c, int splits,
            long long per_split) {
   return groups >= 1 && groups <= 65535 && rows >= 1 && c >= kVec &&
@@ -557,6 +669,43 @@ int episodic_bn_eval_forward(const void* x, void* y, const float* weight,
   else
     episodic_bn_apply<false><<<stream_grid(1, splits), threads, 0, s>>>(
         xb, yb, stats, 1, rows, c, per_split);
+  return (int)cudaGetLastError();
+}
+
+// The eval ConvBlock epilogue. x [n h w, C] bf16 (channels-last [n, C, h,
+// w]), a convolution's output made without its bias; conv_bias [C] f32 or
+// null; y [n (h / 2) (w / 2), C] bf16 with `pool` (channels-last [n, C,
+// h / 2, w / 2]; h and w at least 2), else [n h w, C]; weight, bias,
+// running_mean, running_var and stats as for episodic_bn_eval_forward.
+// Output rows [s per_split, (s + 1) per_split) go to CTA s. x and y 16-byte
+// aligned. Launches on `stream`; returns a cudaError_t.
+int episodic_bn_eval_epilogue_forward(
+    const void* x, void* y, const float* weight, const float* bias,
+    const float* running_mean, const float* running_var,
+    const float* conv_bias, float* stats, int n, int h, int w, int c,
+    int pool, int splits, long long per_split, float eps, int relu,
+    void* stream) {
+  const long long rows =
+      pool ? (long long)n * (h / 2) * (w / 2) : (long long)n * h * w;
+  if (n < 1 || h < 1 + !!pool || w < 1 + !!pool ||
+      (pool && rows > 0x7fffffffLL) || !valid(1, rows, c, splits, per_split))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const Tile t = tile_of(c);
+  const int threads = t.lanes * t.rows;
+  episodic_bn_eval_finalize<<<finalize_blocks(1, c), kFinalizeThreads, 0,
+                              s>>>(weight, bias, running_mean, running_var,
+                                   stats, c, eps);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const auto* xb = static_cast<const __nv_bfloat16*>(x);
+  auto* yb = static_cast<__nv_bfloat16*>(y);
+  if (relu)
+    launch_epilogue<true>(pool, splits, threads, s, xb, yb, stats, conv_bias,
+                          h, w, c, rows, per_split);
+  else
+    launch_epilogue<false>(pool, splits, threads, s, xb, yb, stats, conv_bias,
+                           h, w, c, rows, per_split);
   return (int)cudaGetLastError();
 }
 

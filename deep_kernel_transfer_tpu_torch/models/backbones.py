@@ -128,6 +128,19 @@ class EpisodicBatchNorm(nn.Module):
                 stats[self] = new
             return y
 
+    def eval_epilogue(self, x: torch.Tensor, conv_bias: torch.Tensor | None,
+                      pool: bool) -> torch.Tensor:
+        """Eval BatchNorm + ReLU (+ the 2x2 max-pool where `pool`) of a
+        conv output x made without its bias `conv_bias`, which the same
+        pass adds: the route that
+        ops/episodic_batchnorm.py::takes_eval_epilogue chose for an eval
+        ConvBlock."""
+        with annotate("batchnorm"):
+            return ebn.episodic_batchnorm_eval(
+                x, self.weight, self.bias, self.running_mean,
+                self.running_var, self.eps, relu=True, conv_bias=conv_bias,
+                pool=pool)
+
 
 def lecun_normal_(weight: torch.Tensor, fan_in: int, generator=None) -> None:
     """flax's lecun_normal in place: a normal truncated to +-2 standard
@@ -140,17 +153,21 @@ def lecun_normal_(weight: torch.Tensor, fan_in: int, generator=None) -> None:
 
 class Conv2d(nn.Conv2d):
     """nn.Conv2d with the trunk layers' signature; the weights are cast to
-    the input's dtype."""
+    the input's dtype. `with_bias=False` leaves the bias out."""
 
-    def forward(self, x, train=True, ep_groups=1, stats=None):
-        bias = None if self.bias is None else self.bias.to(x.dtype)
+    def forward(self, x, train=True, ep_groups=1, stats=None, with_bias=True):
+        bias = (None if self.bias is None or not with_bias
+                else self.bias.to(x.dtype))
         return F.conv2d(x, self.weight.to(x.dtype), bias, self.stride,
                         self.padding, self.dilation)
 
 
 class ConvBlock(nn.Module):
     """3x3 conv + BN + ReLU (+ 2x2 max-pool), reference backbone.py:105-132;
-    padding 0 in the first two blocks of the NP trunks."""
+    padding 0 in the first two blocks of the NP trunks. Where
+    ops/episodic_batchnorm.py::takes_eval_epilogue says so (eval, CUDA,
+    bf16, no gradient), the conv runs without its bias and one kernel pass
+    does the rest, the bias add included."""
 
     def __init__(self, in_dim: int, out_dim: int, pool: bool = True,
                  padding: int = 1):
@@ -160,6 +177,11 @@ class ConvBlock(nn.Module):
         self.pool = pool
 
     def forward(self, x, train=True, ep_groups=1, stats=None):
+        if ebn.takes_eval_epilogue(x, self.C.out_channels, train,
+                                   self.C.weight, self.C.bias, self.BN.weight,
+                                   self.BN.bias):
+            return self.BN.eval_epilogue(self.C(x, with_bias=False),
+                                         self.C.bias, self.pool)
         x = self.BN(self.C(x), train, ep_groups, stats, relu=True)
         if self.pool:
             x = F.max_pool2d(x, 2, 2)

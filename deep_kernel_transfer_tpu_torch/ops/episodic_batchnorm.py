@@ -30,7 +30,14 @@ recomputes the statistics from x, so higher derivatives follow.
 In eval mode the running mean and var stand in for the batch's, over the
 whole batch: scale and shift come from them by the same law, and one
 apply pass over the [n H W, C] block writes y, 4 bytes an element. It
-records no gradient, so it is taken only where none is wanted.
+records no gradient, so it is taken only where none is wanted. An eval
+ConvBlock (models/backbones.py) on the card goes further where
+`takes_eval_epilogue` says so: its convolution runs without its bias b_c,
+and one pass adds it (bf16(x + bf16(b_c)), rounded as ATen's bias pass
+after cuDNN rounds it), applies the BatchNorm and the ReLU, and where the
+block pools, writes only the 2x2 max-pooled map: 2.5 bytes an element in
+place of the 10.5 that the bias add, the apply and torch's max-pool moved
+as three passes, and the same output bit for bit.
 """
 from __future__ import annotations
 
@@ -49,19 +56,37 @@ MAX_C = VEC * THREADS
 TARGET_CTAS = 2048
 MIN_ELEMENTS = 16384
 MAX_SPLITS = 512
-# The eval apply's row split: about EVAL_ELEMENTS elements a CTA, so that a
-# large map spreads over many waves of short CTAs and the last wave's tail
-# is short; at most MAX_GRID CTAs (the kernels' launch limit).
+# The eval passes' row split: about EVAL_ELEMENTS input elements a CTA, so
+# that a large map spreads over many waves of short CTAs and the last
+# wave's tail is short; at most MAX_GRID CTAs (the kernels' launch limit).
 EVAL_ELEMENTS = 32768
 MAX_GRID = 65535
+
+
+def _takes(dtype: torch.dtype, c: int) -> bool:
+    """bf16, C a multiple of 8 up to 2048."""
+    return dtype == torch.bfloat16 and c % VEC == 0 and VEC <= c <= MAX_C
 
 
 def supports(x: torch.Tensor) -> bool:
     """Whether the kernels take x: bf16, 4-D, C a multiple of 8 up to
     2048."""
-    return (x.dim() == 4 and x.dtype == torch.bfloat16
-            and x.shape[1] % VEC == 0 and VEC <= x.shape[1] <= MAX_C
-            and x.numel() > 0)
+    return x.dim() == 4 and x.numel() > 0 and _takes(x.dtype, x.shape[1])
+
+
+def takes_eval_epilogue(x: torch.Tensor, channels: int, train: bool,
+                        *params: torch.Tensor | None) -> bool:
+    """Whether an eval ConvBlock of x takes the fused epilogue: its
+    convolution to `channels` channels runs without its bias, and
+    `episodic_batchnorm_eval` adds that bias, normalises and pools where
+    the block pools, in one pass. Taken in eval mode, on a CUDA device,
+    where the conv output is one that `supports` takes (a non-empty 4-D
+    bf16 x, `channels` a multiple of 8 up to 2048) and no gradient is
+    recorded on x or `params` (the conv's and the BatchNorm's). Every
+    other block keeps the chain of conv with bias, `batchnorm` and
+    max_pool2d."""
+    return (not train and x.is_cuda and x.dim() == 4 and x.numel() > 0
+            and _takes(x.dtype, channels) and not records_grad(x, *params))
 
 
 def plan(groups: int, rows: int, c: int) -> tuple[int, int]:
@@ -75,19 +100,22 @@ def plan(groups: int, rows: int, c: int) -> tuple[int, int]:
     return -(-rows // per_split), per_split
 
 
-def eval_plan(rows: int, c: int) -> tuple[int, int]:
-    """(splits, rows a split) of the eval apply over `rows` rows of c
-    channels: rows a split a multiple of the CTA's rows at once."""
+def eval_plan(rows: int, c: int, window: int = 1) -> tuple[int, int]:
+    """(splits, rows a split) of an eval pass over `rows` output rows of c
+    channels, each read from `window` input rows (4 where it pools): rows
+    a split a multiple of the CTA's rows at once."""
     tile_rows = THREADS // (c // VEC)
-    splits = max(1, min(-(-rows * c // EVAL_ELEMENTS), MAX_GRID))
+    splits = max(1, min(-(-rows * c * window // EVAL_ELEMENTS), MAX_GRID))
     per_split = -(-rows // splits)
     per_split = -(-per_split // tile_rows) * tile_rows
     return -(-rows // per_split), per_split
 
 
-def records_grad(*tensors: torch.Tensor) -> bool:
-    """Whether an op on these tensors would record a gradient."""
-    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+def records_grad(*tensors: torch.Tensor | None) -> bool:
+    """Whether an op on these tensors (None for an absent one) would record
+    a gradient."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
 
 
 def _grouped(t: torch.Tensor, groups: int) -> torch.Tensor:
@@ -228,39 +256,94 @@ def _backward_cuda(dy, x, stats, groups: int, relu: bool):
     return dx, sums
 
 
-def _eval_plain(x, weight, bias, running_mean, running_var, eps: float,
-                relu: bool):
-    """Eval-mode y with torch ops: bf16(x scale + shift), then the ReLU."""
-    c = x.shape[1]
+def _eval_coeffs(weight, bias, running_mean, running_var, eps: float):
+    """The eval finalize's f32 scale and shift [C]: scale = bf16(w)
+    rsqrt(var + eps), shift = bf16(b) - mean scale."""
     scale = (weight.to(torch.bfloat16).float()
              * torch.rsqrt(running_var.float() + eps))
     shift = bias.to(torch.bfloat16).float() - running_mean.float() * scale
-    y = x.float() * scale.view(1, c, 1, 1) + shift.view(1, c, 1, 1)
+    return scale, shift
+
+
+def _biased(x, conv_bias):
+    """f32 bf16(x + bf16(conv_bias)): a convolution's bias added as ATen
+    adds it after cuDNN (an f32 sum rounded to bf16); x itself without
+    one."""
+    if conv_bias is None:
+        return x.float()
+    b = conv_bias.to(torch.bfloat16).float().view(1, -1, 1, 1)
+    return (x.float() + b).to(torch.bfloat16).float()
+
+
+def _eval_plain(x, weight, bias, running_mean, running_var, eps: float,
+                relu: bool, conv_bias=None):
+    """Eval-mode y with torch ops: bf16(x scale + shift), then the ReLU;
+    x with the bias `conv_bias` added first where given."""
+    c = x.shape[1]
+    scale, shift = _eval_coeffs(weight, bias, running_mean, running_var, eps)
+    y = (_biased(x, conv_bias) * scale.view(1, c, 1, 1)
+         + shift.view(1, c, 1, 1))
     if relu:
         y = torch.clamp_min(y, 0.0)
     return y.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
 
 
-def _eval_cuda(x, weight, bias, running_mean, running_var, eps: float,
-               relu: bool):
+def _eval_pool_plain(x, weight, bias, running_mean, running_var, eps: float,
+                     relu: bool, conv_bias=None):
+    """The pooled eval pass with torch ops: each element of a 2x2 window
+    (floor sizes), with the bias `conv_bias` added first where given,
+    through x scale + shift and the ReLU in f32, the window's max, one
+    bf16 rounding."""
     n, c, h, w = x.shape
-    rows = n * h * w
-    splits, per_split = eval_plan(rows, c)
+    scale, shift = _eval_coeffs(weight, bias, running_mean, running_var, eps)
+    win = _biased(x[:, :, :h // 2 * 2, :w // 2 * 2], conv_bias)
+    y = win * scale.view(1, c, 1, 1) + shift.view(1, c, 1, 1)
+    if relu:
+        y = torch.clamp_min(y, 0.0)
+    y = y.reshape(n, c, h // 2, 2, w // 2, 2).amax(dim=(3, 5))
+    return y.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+
+
+def _eval_cuda(x, weight, bias, running_mean, running_var, eps: float,
+               relu: bool, conv_bias, pool: bool):
+    n, c, h, w = x.shape
     f32 = [t.detach().to(torch.float32).contiguous()
            for t in (weight, bias, running_mean, running_var)]
-    y = torch.empty_like(x, memory_format=torch.channels_last)
     stats = torch.empty((5, 1, c), dtype=torch.float32, device=x.device)
-    fn = _ctypes(build.load("episodic_batchnorm").episodic_bn_eval_forward, 7,
-                 [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                  ctypes.c_longlong, ctypes.c_float, ctypes.c_int])
+    lib = build.load("episodic_batchnorm")
+    if conv_bias is None and not pool:
+        rows = n * h * w
+        splits, per_split = eval_plan(rows, c)
+        y = torch.empty_like(x, memory_format=torch.channels_last)
+        name = "episodic_bn_eval_forward"
+        fn = _ctypes(getattr(lib, name), 7,
+                     [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_longlong, ctypes.c_float, ctypes.c_int])
+        args = [rows, c, splits, per_split]
+    else:
+        f32.append(None if conv_bias is None else
+                   conv_bias.detach().to(torch.float32).contiguous())
+        out = (n * (h // 2) * (w // 2), h // 2, w // 2) if pool else (
+            n * h * w, h, w)
+        splits, per_split = eval_plan(out[0], c, 4 if pool else 1)
+        y = torch.empty((n, c) + out[1:], dtype=x.dtype, device=x.device,
+                        memory_format=torch.channels_last)
+        name = "episodic_bn_eval_epilogue_forward"
+        fn = _ctypes(getattr(lib, name), 8,
+                     [ctypes.c_int] * 6 + [ctypes.c_longlong, ctypes.c_float,
+                                           ctypes.c_int])
+        args = [n, h, w, c, int(pool), splits, per_split]
     with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), y.data_ptr(), *(t.data_ptr() for t in f32),
-                 stats.data_ptr(), rows, c, splits, per_split, float(eps),
-                 int(relu), torch.cuda.current_stream().cuda_stream)
+        err = fn(x.data_ptr(), y.data_ptr(),
+                 *(None if t is None else t.data_ptr() for t in f32),
+                 stats.data_ptr(), *args, float(eps), int(relu),
+                 torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"episodic_bn_eval_forward launch failed: "
-                           f"{build.error_name(err)}")
-    episodic_batchnorm.eval_launches += 1
+        raise RuntimeError(f"{name} launch failed: {build.error_name(err)}")
+    if pool:
+        episodic_batchnorm.eval_pool_launches += 1
+    else:
+        episodic_batchnorm.eval_launches += 1
     return y
 
 
@@ -341,34 +424,46 @@ class _EvalLaunch(torch.autograd.Function):
     where no gradient is recorded, so it has no backward."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, running_mean, running_var, eps, relu):
+    def forward(ctx, x, weight, bias, running_mean, running_var, eps, relu,
+                conv_bias, pool):
         return _eval_cuda(x, weight, bias, running_mean, running_var, eps,
-                          relu)
+                          relu, conv_bias, pool)
 
 
 def episodic_batchnorm_eval(x: torch.Tensor, weight: torch.Tensor,
                             bias: torch.Tensor, running_mean: torch.Tensor,
                             running_var: torch.Tensor, eps: float = 1e-5,
-                            relu: bool = False) -> torch.Tensor:
+                            relu: bool = False,
+                            conv_bias: torch.Tensor | None = None,
+                            pool: bool = False) -> torch.Tensor:
     """Eval-mode BatchNorm of bf16 x [N, C, H, W] by the running mean and
     var [C] (f32), then a ReLU where `relu`: y [N, C, H, W] bf16 in
     channels-last memory, bf16(x scale + shift) with scale = bf16(w)
-    rsqrt(var + eps) and shift = bf16(b) - mean scale in f32. It records
-    no gradient, and refuses inputs that would want one. CUDA tensors
-    launch the kernels (a non-channels-last x is copied to channels-last
-    first); CPU tensors take `_eval_plain`."""
+    rsqrt(var + eps) and shift = bf16(b) - mean scale in f32; where x is
+    a convolution's output made without its bias `conv_bias`, x stands
+    for bf16(x + bf16(conv_bias)), the bias as ATen adds it. With `pool`,
+    the 2x2 max-pool of stride 2 of that y, [N, C, H // 2, W // 2], the
+    max taken in f32 before the one rounding. It records no gradient, and
+    refuses inputs that would want one. CUDA tensors launch the kernels
+    (a non-channels-last x is copied to channels-last first); CPU tensors
+    take `_eval_plain` or `_eval_pool_plain`."""
     if not supports(x):
         raise ValueError(f"episodic_batchnorm_eval takes bf16 [N, C, H, W] "
                          f"with C a multiple of {VEC} up to {MAX_C}; got "
                          f"{x.dtype} {tuple(x.shape)}")
-    if records_grad(x, weight, bias):
+    if records_grad(x, weight, bias, conv_bias):
         raise ValueError("episodic_batchnorm_eval records no gradient; run "
                          "it under torch.no_grad()")
+    if pool and min(x.shape[2:]) < 2:
+        raise ValueError(f"a 2x2 max-pool takes maps of at least 2x2; got "
+                         f"{tuple(x.shape)}")
     if not x.is_cuda:
-        return _eval_plain(x, weight, bias, running_mean, running_var, eps,
-                           relu)
+        plain = _eval_pool_plain if pool else _eval_plain
+        return plain(x, weight, bias, running_mean, running_var, eps, relu,
+                     conv_bias)
     return _EvalLaunch.apply(_channels_last(x), weight, bias, running_mean,
-                             running_var, float(eps), bool(relu))
+                             running_var, float(eps), bool(relu), conv_bias,
+                             bool(pool))
 
 
 def batchnorm_torch(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -468,6 +563,7 @@ episodic_batchnorm.launches = 0  # kernel entry calls, forward and backward
 episodic_batchnorm.torch_route = 0  # training calls that `supports` takes,
 # left to torch
 episodic_batchnorm.copies = 0  # layout copies of an input or a gradient
-episodic_batchnorm.eval_launches = 0  # eval kernel entry calls
+episodic_batchnorm.eval_launches = 0  # unpooled eval entry calls
+episodic_batchnorm.eval_pool_launches = 0  # pooled eval epilogue entry calls
 episodic_batchnorm.eval_torch_route = 0  # CUDA eval calls that `supports`
 # takes, left to torch

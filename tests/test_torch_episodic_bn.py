@@ -16,9 +16,10 @@ from __future__ import annotations
 
 import pytest
 import torch
+import torch.nn.functional as F
 
 from deep_kernel_transfer_tpu_torch.models.backbones import (
-    BatchStats, EpisodicBatchNorm)
+    BatchStats, ConvBlock, EpisodicBatchNorm)
 from deep_kernel_transfer_tpu_torch.ops import episodic_batchnorm as ebn
 from torch_test_threads import one_thread  # noqa: F401
 
@@ -199,7 +200,7 @@ def test_batchnorm_takes_the_torch_ops_on_the_cpu(case):
     groups = 1 if split or not train else 2
     batch_sum = (lambda t: t + t) if split else None
     names = ("launches", "torch_route", "copies", "eval_launches",
-             "eval_torch_route")
+             "eval_torch_route", "eval_pool_launches")
 
     def counters():
         return [getattr(ebn.episodic_batchnorm, k) for k in names]
@@ -221,7 +222,7 @@ def test_batchnorm_takes_the_torch_ops_on_the_cpu(case):
     before = counters()
     got = [run(module), run(lambda xr: ebn.batchnorm(xr, *args, **kw))]
     assert [b - a for a, b in zip(before, counters())] == [
-        0, 2 * counted, 0, 0, 0]
+        0, 2 * counted, 0, 0, 0, 0]
     want = run(lambda xr: ebn.batchnorm_torch(xr, *args, **kw))
     assert len(want) == (6 if train else 4)
     for route in got:
@@ -262,7 +263,7 @@ def test_eval_on_the_cpu_takes_the_torch_route(grad):
     would record a gradient."""
     x, bn, _ = _inputs(16, 1, True)
     names = ("launches", "torch_route", "copies", "eval_launches",
-             "eval_torch_route")
+             "eval_torch_route", "eval_pool_launches")
 
     def counters():
         return [getattr(ebn.episodic_batchnorm, k) for k in names]
@@ -279,19 +280,227 @@ def test_eval_on_the_cpu_takes_the_torch_route(grad):
     assert counters() == before
 
 
-@pytest.mark.parametrize("rows,c", [(3200 * 84 * 84, 64), (3200 * 10 * 10, 64),
-                                    (800 * 56 * 56, 256), (800 * 7 * 7, 2048),
-                                    (7, 8), (3200 * 112 * 112, 64)])
+EVAL_PLAN_CASES = [(3200 * 84 * 84, 64), (3200 * 10 * 10, 64),
+                   (800 * 56 * 56, 256), (800 * 7 * 7, 2048), (7, 8),
+                   (3200 * 112 * 112, 64)]
+# Conv4's eval batch pooled: 84 -> 42, 42 -> 21, 21 -> 10 and 10 -> 5 px
+POOLED_PLAN_CASES = [(3200 * 42 * 42, 64), (3200 * 21 * 21, 64),
+                     (3200 * 10 * 10, 64), (3200 * 5 * 5, 64), (7, 8),
+                     (800 * 28 * 28, 2048)]
+
+
+@pytest.mark.parametrize("rows,c", EVAL_PLAN_CASES)
 def test_eval_plan_covers_the_rows(rows, c):
-    """The eval apply's split: every split but the last full, rows a split
+    _plan_covers_the_rows(rows, c, 1)
+
+
+@pytest.mark.parametrize("rows,c", POOLED_PLAN_CASES)
+def test_pooled_eval_plan_covers_the_rows(rows, c):
+    """The pooled pass's split, whose output rows read four input rows
+    each."""
+    _plan_covers_the_rows(rows, c, 4)
+
+
+def _plan_covers_the_rows(rows, c, window):
+    """The eval passes' split: every split but the last full, rows a split
     a multiple of the CTA's rows at once, within the launch limit, and
-    about EVAL_ELEMENTS elements a CTA where the grid allows."""
-    splits, per_split = ebn.eval_plan(rows, c)
+    about EVAL_ELEMENTS input elements a CTA where the grid allows."""
+    splits, per_split = ebn.eval_plan(rows, c, window)
     assert 1 <= splits <= ebn.MAX_GRID
     assert per_split % (ebn.THREADS // (c // ebn.VEC)) == 0
     assert (splits - 1) * per_split < rows <= splits * per_split
-    if splits < ebn.MAX_GRID and splits > 1:
-        assert per_split * c < 2 * ebn.EVAL_ELEMENTS
+    if 1 < rows * c * window / ebn.EVAL_ELEMENTS <= ebn.MAX_GRID:
+        assert per_split * c * window < 2 * ebn.EVAL_ELEMENTS
+
+
+U = 2.0 ** -8  # a bf16 rounding's largest relative error
+
+
+def _pool_inputs(c: int, px: int, seed: int = 0):
+    """bf16 x [2, c, px, px] (a conv output without its bias), a conv bias
+    [c] and an eval BatchNorm whose weights take both signs."""
+    g = torch.Generator().manual_seed(1000 * seed + c + px)
+    x = (torch.randn(2, c, px, px, generator=g) * 1.5 + 0.3).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    bn = EpisodicBatchNorm(c)
+    with torch.no_grad():
+        sign = torch.where(torch.arange(c) % 3 == 1, -1.0, 1.0)
+        bn.weight.copy_(sign * (1.0 + 0.3 * torch.rand(c, generator=g)))
+        bn.bias.copy_(0.2 * torch.randn(c, generator=g))
+        bn.running_mean.copy_(0.3 + 0.1 * torch.randn(c, generator=g))
+        bn.running_var.copy_(2.25 * (1.0 + 0.1 * torch.rand(c, generator=g)))
+    conv_bias = 0.4 * torch.randn(c, generator=g)
+    return x, bn, conv_bias
+
+
+def _eval_args(bn):
+    return (bn.weight, bn.bias, bn.running_mean, bn.running_var, bn.eps)
+
+
+def _within_roundings(pre, scale, want, got, pool):
+    """|got - want| <= one bf16 rounding of each pre-BN magnitude summed in
+    `pre`, carried through |scale|, and of each output (max-pooled where
+    `pool`, since the max moves no value by more than its window's largest
+    move)."""
+    move = scale.abs().view(1, -1, 1, 1) * U * pre.abs()
+    if pool:
+        move = F.max_pool2d(move, 2, 2)
+    bound = move + U * (want.float().abs() + got.float().abs()) + 1e-5
+    return bool(((got.float() - want.float()).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("pool", [True, False])
+@pytest.mark.parametrize("px", [84, 42, 21, 10, 82, 39])
+@pytest.mark.parametrize("c", [8, 64, 128])
+@pytest.mark.parametrize("zero_bias", [True, False])
+def test_eval_epilogue_plain_against_the_chain(px, c, zero_bias, pool):
+    """The eval epilogue's plain versions (`_eval_pool_plain` and
+    `_eval_plain` with a conv bias: the CPU route of
+    `episodic_batchnorm_eval(..., conv_bias, pool)`, the kernel's
+    arithmetic) against the chain they replace, the bf16 bias add, the
+    eval BatchNorm+ReLU and max_pool2d where the block pools, on Conv4's
+    maps (84, 42, 21, 10 px) and Conv4NP's (82, 39), odd sizes floored, BN
+    weights of both signs: bit-equal, with a zero conv bias and a nonzero
+    one."""
+    x, bn, b = _pool_inputs(c, px)
+    if zero_bias:
+        b = torch.zeros(c)
+    with torch.no_grad():
+        got = ebn.episodic_batchnorm_eval(x, *_eval_args(bn), relu=True,
+                                          conv_bias=b, pool=pool)
+        want = ebn._eval_plain(x + b.to(torch.bfloat16).view(1, c, 1, 1),
+                               *_eval_args(bn), True)
+        if pool:
+            want = F.max_pool2d(want, 2, 2)
+    side = px // 2 if pool else px
+    assert got.shape == (2, c, side, side) == want.shape
+    assert got.dtype == torch.bfloat16
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert bool((got >= 0).all())
+    assert torch.equal(got, want)
+    if zero_bias:
+        with torch.no_grad():
+            assert torch.equal(got, ebn.episodic_batchnorm_eval(
+                x, *_eval_args(bn), relu=True, pool=pool))
+
+
+def _block(c_in: int, pool: bool, padding: int, seed: int = 0):
+    """A ConvBlock to 64 channels with a nonzero conv bias and eval
+    statistics, BN weights of both signs, and a bf16 input [4, c_in, 23,
+    23] in channels-last memory."""
+    g = torch.Generator().manual_seed(seed)
+    block = ConvBlock(c_in, 64, pool=pool, padding=padding)
+    _, bn, conv_bias = _pool_inputs(64, 4, seed)
+    block.BN.load_state_dict(bn.state_dict())
+    with torch.no_grad():
+        block.C.bias.copy_(conv_bias)
+    x = torch.randn(4, c_in, 23, 23, generator=g).to(torch.bfloat16)
+    return block, x.contiguous(memory_format=torch.channels_last)
+
+
+def _today(block, x, train, groups=1, stats=None):
+    """Today's chain of a ConvBlock: conv with bias, `batchnorm`, then
+    max_pool2d where the block pools."""
+    y = block.BN(block.C(x), train, groups, stats, relu=True)
+    return F.max_pool2d(y, 2, 2) if block.pool else y
+
+
+@pytest.mark.parametrize("pool,padding", [(True, 1), (True, 0), (False, 1)])
+def test_eval_conv_block_on_the_fused_route(monkeypatch, pool, padding):
+    """An eval ConvBlock on the fused route (the route test made true on
+    the CPU, where it needs a CUDA tensor: the conv without its bias, then
+    `episodic_batchnorm_eval` adding it, pooled or not)
+    against today's chain (conv with bias, the eval torch route, the
+    max-pool): the same shape and layout, within a bf16 rounding of each
+    pre-BN value that one side rounds (the fused route rounds the conv
+    output without its bias, then that plus the bias; today's CPU chain the
+    conv output with its bias, added inside the convolution) and of each
+    output."""
+    block, x = _block(3, pool, padding)
+    with torch.no_grad():
+        want = _today(block, x, False)
+        assert torch.equal(block(x, False), want)  # the CPU keeps the chain
+        monkeypatch.setattr(ebn, "takes_eval_epilogue", lambda *a: True)
+        got = block(x, False)
+        bare = block.C(x, with_bias=False).float()
+        exact = bare + block.C.bias.to(torch.bfloat16).float().view(
+            1, -1, 1, 1)
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    scale, _ = ebn._eval_coeffs(*_eval_args(block.BN))
+    assert _within_roundings(bare.abs() + 2 * exact.abs(), scale, want,
+                             got, pool)
+
+
+@pytest.mark.parametrize("pool", [True, False])
+def test_training_conv_block_keeps_the_chain(monkeypatch, pool):
+    """A training-mode ConvBlock, with every condition of the fused route
+    but the mode met, gives today's chain bit for bit: output, the new
+    running statistics and the gradients."""
+    block, x = _block(8, pool, 1, seed=3)
+    monkeypatch.setattr(ebn, "takes_eval_epilogue",
+                        lambda x, channels, train, *p: not train)
+    dy = torch.randn(_today(block, x, True, 2).shape,
+                     generator=torch.Generator().manual_seed(5))
+
+    def run(fn):
+        stats = BatchStats()
+        y = fn(block, x, True, 2, stats)
+        params = (block.C.weight, block.C.bias, block.BN.weight,
+                  block.BN.bias)
+        return (y,) + torch.autograd.grad(y, params, dy.to(y.dtype)) + tuple(
+            stats[block.BN])
+
+    got = run(lambda b, *a: b(*a))
+    want = run(_today)
+    assert all(torch.equal(a, b) for a, b in zip(got, want, strict=True))
+
+
+class _OnTheCard:
+    """What `takes_eval_epilogue` reads of a tensor, with is_cuda true: the CPU
+    has no CUDA tensor to hand it."""
+
+    is_cuda = True
+
+    def __init__(self, t: torch.Tensor):
+        self.t = t
+
+    def __getattr__(self, name):
+        return getattr(self.t, name)
+
+
+FOLD_CASES = {  # name: (dtype, channels, train, grad mode, x grad, taken)
+    "eval": (torch.bfloat16, 64, False, False, False, True),
+    "eval_grad_mode": (torch.bfloat16, 64, False, True, False, False),
+    "eval_x_grad": (torch.bfloat16, 64, False, True, True, False),
+    "eval_x_grad_no_grad_mode": (torch.bfloat16, 64, False, False, True,
+                                 True),
+    "train": (torch.bfloat16, 64, True, False, False, False),
+    "f32": (torch.float32, 64, False, False, False, False),
+    "c12": (torch.bfloat16, 12, False, False, False, False),
+    "c4096": (torch.bfloat16, 4096, False, False, False, False)}
+
+
+@pytest.mark.parametrize("case", list(FOLD_CASES))
+def test_the_fused_route_is_chosen_from_the_input(case):
+    """`takes_eval_epilogue` takes an eval, bf16, 4-D CUDA input whose conv
+    output `supports` takes and on which no gradient is recorded, and
+    nothing else; a CPU tensor never. The eval op refuses a conv bias
+    that would record a gradient."""
+    dtype, channels, train, grad_mode, x_grad, taken = FOLD_CASES[case]
+    x = torch.randn(2, 3, 5, 5, dtype=dtype).requires_grad_(x_grad)
+    block = ConvBlock(3, channels)  # its parameters require gradients
+    params = (block.C.weight, block.C.bias, block.BN.weight, block.BN.bias)
+    with torch.set_grad_enabled(grad_mode):
+        assert ebn.takes_eval_epilogue(_OnTheCard(x), channels, train,
+                                       *params) == taken
+        assert not ebn.takes_eval_epilogue(x, channels, train, *params)
+        if grad_mode:
+            y, bn, _ = _pool_inputs(8, 4)
+            with pytest.raises(ValueError):
+                ebn.episodic_batchnorm_eval(
+                    y, *_eval_args(bn), relu=True, pool=True,
+                    conv_bias=torch.zeros(8, requires_grad=True))
 
 
 @pytest.mark.parametrize("config,traffic,per_image", [
