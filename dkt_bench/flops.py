@@ -2,11 +2,12 @@
 training step and an eval batch, and the fused MLL's bound.
 
 Peaks are NVIDIA's datasheet figures for one H100 SXM at its full 700 W
-(dense, no sparsity). Model FLOPs count the convolutions from the
-configuration's shapes at 2 multiply-adds forward; a training step adds
-twice that backward, less the input gradient of the first convolution,
-which nothing needs; recomputation is not counted. The GP's work is
-counted in float32 as the fused MLL's forward bound counts it.
+(dense, no sparsity). Model FLOPs count the trunk's products (its
+convolutions from their shapes, or the products the trunk module lists in
+`macs`) at 2 FLOPs a multiply-add forward; a training step adds twice that
+backward, less the input gradient of the first product, which nothing
+needs; recomputation is not counted. The GP's work is counted in float32
+as the fused MLL's forward bound counts it.
 """
 from __future__ import annotations
 
@@ -23,14 +24,25 @@ def conv_macs(model: str, size: int) -> list[int]:
             for cin, cout, k, h, w in trunk(model).conv_shapes(size)]
 
 
+def trunk_macs(model: str, size: int) -> list[int]:
+    """Forward multiply-adds of each of the trunk's products for one
+    image, in order, the stem first: the trunk module's `macs(size)` where
+    it defines one (a trunk whose products are not all convolutions, such
+    as linear layers and attention), else `conv_macs`."""
+    t = trunk(model)
+    return list(t.macs(size)) if hasattr(t, "macs") else conv_macs(model, size)
+
+
 def trunk_forward_flops(model: str, size: int) -> float:
-    return 2.0 * sum(conv_macs(model, size))
+    return 2.0 * sum(trunk_macs(model, size))
 
 
 def trunk_train_flops(model: str, size: int) -> float:
-    """Forward, the weight gradients and every input gradient but the
-    first convolution's."""
-    macs = conv_macs(model, size)
+    """Forward, and a backward of twice the forward: each product's two
+    operand gradients (of a weight and an input, or, for a product of two
+    activations such as attention's Q K^T and A V, of both activations),
+    less the input gradient of the first product, which nothing needs."""
+    macs = trunk_macs(model, size)
     return 2.0 * (3 * sum(macs) - macs[0])
 
 

@@ -37,16 +37,75 @@ def trainable(cfg: dict, n_way: int) -> list[str]:
             if kind not in RUNNING]
 
 
+def _zero(z, u):
+    return torch.zeros_like(z)
+
+
+def _one(z, u):
+    return torch.ones_like(z)
+
+
+def _normal(sd: float):
+    return lambda z, u: sd * z
+
+
+def _uniform(lo: float, width: float):
+    return lambda z, u: lo + width * u
+
+
+# kind -> (initial law, `trained` law), each of (z, u): the leaf's own
+# slices of the standard normal and the uniform draw
+LAWS = {
+    "conv_bias": (_zero, _normal(0.01)),
+    "bn_weight": (_one, _uniform(0.5, 1.0)),
+    "bn_bias": (_zero, _normal(0.1)),
+    "bn_running_mean": (_zero, _normal(0.1)),
+    "bn_running_var": (_one, _uniform(0.5, 1.5)),
+    "gp_mean": (_zero, _normal(0.1)),
+    "gp_scale": (_zero, _normal(0.5)),
+    "linear": (_normal(0.02), _normal(0.02)),
+    "linear_bias": (_zero, _normal(0.01)),
+    "ln_weight": (_one, _uniform(0.5, 1.0)),
+    "ln_bias": (_zero, _normal(0.1)),
+    "table": (_normal(0.02), _normal(0.02)),
+}
+
+
+def _draw_leaf(t, name: str, kind: str, shape, z, u, trained: bool):
+    """One leaf by its kind's law: a convolution [out, in, k, k] N(0, 2 /
+    (k k out)) in both laws, a kind of LAWS by its law, any other kind by
+    the trunk module t's own `draw_leaf(kind, shape, z, u, trained)`,
+    which returns None for a kind it does not know either."""
+    if kind == "conv":
+        return z * (2.0 / (shape[0] * shape[2] * shape[3])) ** 0.5
+    if kind in LAWS:
+        return LAWS[kind][trained](z, u)
+    own = getattr(t, "draw_leaf", None)
+    leaf = own(kind, shape, z, u, trained) if own is not None else None
+    if leaf is None:
+        raise KeyError(f"no law for leaf {name!r} of kind {kind!r}: neither "
+                       f"reference.dkt.LAWS nor {t.__name__}.draw_leaf "
+                       "knows it")
+    return leaf
+
+
 def draw_weights(cfg: dict, n_way: int, gen: torch.Generator, device,
                  trained: bool = False) -> dict:
     """Every parameter and buffer, float32 on `device`, from `gen` in two
-    calls (one normal, one uniform draw for all leaves). The initial law
-    of the reference: convolutions N(0, 2 / (k k out)), zero conv biases,
-    unit BatchNorms, the GP's raw parameters 0. `trained` draws a state
-    such as training leaves instead: BatchNorm scales U(0.5, 1.5), shifts
-    N(0, 0.1), running means N(0, 0.1), running variances U(0.5, 2), conv
-    biases N(0, 0.01), the GP's constant means N(0, 0.1) and raw
-    outputscales N(0, 0.5)."""
+    calls (one normal, one uniform draw for all leaves, sliced in
+    `layout`'s order). The initial law of the reference: convolutions N(0,
+    2 / (k k out)), linear weights and bias tables N(0, 0.02^2), zero conv
+    and linear biases, unit BatchNorms and LayerNorms, the GP's raw
+    parameters 0. `trained` draws a state such as training leaves instead:
+    BatchNorm and LayerNorm scales U(0.5, 1.5), shifts N(0, 0.1), running
+    means N(0, 0.1), running variances U(0.5, 2), conv and linear biases
+    N(0, 0.01), the GP's constant means N(0, 0.1) and raw outputscales
+    N(0, 0.5); convolutions, linear weights and tables as initially.
+    Linear weights and tables depart from ViT's and Swin's
+    trunc_normal_(std=.02) in one way: drawn untruncated, so about 4.6% of
+    them lie beyond two standard deviations. A kind that neither LAWS nor
+    the trunk's `draw_leaf` knows raises KeyError."""
+    t = trunk(cfg["model"])
     shapes = layout(cfg, n_way)
     sizes = [torch.Size(s).numel() for s, _ in shapes.values()]
     normal = torch.randn(sum(sizes), generator=gen, device=device)
@@ -56,19 +115,7 @@ def draw_weights(cfg: dict, n_way: int, gen: torch.Generator, device,
         z = normal[at:at + n].view(shape)
         u = uniform[at:at + n].view(shape)
         at += n
-        if kind == "conv":
-            out[name] = z * (2.0 / (shape[0] * shape[2] * shape[3])) ** 0.5
-        elif not trained:
-            out[name] = (torch.ones(shape, device=device)
-                         if kind in ("bn_weight", "bn_running_var")
-                         else torch.zeros(shape, device=device))
-        elif kind == "bn_weight":
-            out[name] = 0.5 + u
-        elif kind == "bn_running_var":
-            out[name] = 0.5 + 1.5 * u
-        else:
-            sd = {"conv_bias": 0.01, "gp_scale": 0.5}.get(kind, 0.1)
-            out[name] = sd * z
+        out[name] = _draw_leaf(t, name, kind, shape, z, u, trained)
     return out
 
 
