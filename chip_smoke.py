@@ -24,7 +24,11 @@
    kernel at Conv4's eval batch and two ResNet50 shapes (against the
    module's eval torch route within a bf16 ulp, two calls bit-equal, its
    launches counted; timed beside the torch route and the 4-bytes-an-
-   element bound).
+   element bound), and the shifted-window attention kernels at one
+   stage-1 Swin-T block of 840 images (o, dqkv and the bias table's
+   gradient against the torch chain, o bit-equal over two calls, one
+   launch each way; forward+backward timed beside the chain and the
+   22-bytes-an-element bound).
 5. Drives the main paths, each with the launch counts set to 0 just before
    and read just after:
    - DKT meta-training (Conv4, bncossim, 5-way 5-shot 15-query, 84x84x3
@@ -72,6 +76,13 @@
      MLL at that shape against its plain version and timed; 3 train steps
      with the launches counted (all 49 BatchNorms on the kernels), the
      fused route against the plain one, the step's ms and peak;
+   - DKT on Swin-T at 224 px (the benchmark cell swint_cub_train_b8's
+     shapes: N = 105, D = 768, 8 episodes a step, bf16 trunk): the fused
+     MLL at that shape against its plain version and timed; 3 train steps
+     with the launches counted (every block's attention on the kernels,
+     one launch each way a block a step), the fused route against the
+     plain one, and one step's peak on the kernels against the torch
+     chain;
    - episode parallelism at the main path's width (drive_parallel_path):
      (a) 5 steps of the sharded step on an NCCL group of one rank against
      5 plain train_steps, launches counted, both timed in turns; (b) two
@@ -2005,6 +2016,207 @@ def drive_resnet50_path(device, card: str) -> dict:
     return resnet_train_steps(device, card, ResNet50, 3, 49, seed=2)
 
 
+SWIN_SHAPE = (840, 56, 96, 3, 7, 3)  # images, map side, C, heads, window, shift
+
+
+def swin_attention_shapes() -> list:
+    """The distinct (map side, C, heads, window, shift) of SwinT's 12
+    window attentions, in the trunk's order: stages 1-3 unshifted and
+    shifted, stage 4's 7 x 7 map one unshifted window."""
+    from deep_kernel_transfer_tpu_torch.models import SwinT
+    from deep_kernel_transfer_tpu_torch.models.backbones import \
+        WindowAttention
+
+    shapes = []
+    for m in SwinT().modules():
+        if isinstance(m, WindowAttention):
+            key = (m.resolution, m.qkv.in_features, m.heads, m.window,
+                   m.shift)
+            if key not in shapes:
+                shapes.append(key)
+    return shapes
+
+
+def window_attention_bound_ms(n: int, side: int, c: int,
+                              window: int) -> tuple[float, str]:
+    """The least time of one block's attention forward and backward: the
+    larger of 22 bytes an element of [n, side^2, c] at 3.35 TB/s and seven
+    products of side^2 x window^2 x c multiply-adds an image at 989
+    TFLOP/s (dkt_bench/metrics/window_attention_roofline.train.py)."""
+    elements = n * side * side * c
+    t_bytes = 22.0 * elements / PEAK_BYTES * 1e3
+    t_ops = 14.0 * elements * window * window / 989e12 * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "bf16 mma")
+
+
+def check_window_attention(device) -> dict:
+    """The shifted-window attention kernels (ops/window_attention.py) at
+    every distinct shape of SwinT's blocks in the benchmark cell's step
+    (840 images; `swin_attention_shapes`): o, dqkv and the bias table's
+    gradient against the torch chain in bf16, two calls' o bit-equal, one
+    launch each way and none to the chain. Then, at one stage-1 block's
+    shapes (56 x 56 tokens, C = 96, 3 heads of 32, 7x7 windows shifted by
+    3), forward + backward timed in turns beside the chain, with the
+    22-bytes-an-element bound. Returns the kernel's JSON entry (no library
+    call computes it: SDPA takes no shifted windows and would pad the
+    49-wide bias)."""
+    from deep_kernel_transfer_tpu_torch.ops import window_attention as wa
+
+    n = SWIN_SHAPE[0]
+    shapes = swin_attention_shapes()
+    if len(shapes) != 7 or tuple(SWIN_SHAPE[1:]) not in shapes:
+        raise AssertionError(f"SwinT's attention shapes: {shapes}")
+
+    def inputs(side, c, heads, window):
+        gen = torch.Generator(device=device).manual_seed(side)
+        qkv = torch.randn((n, side * side, 3 * c), generator=gen,
+                          device=device).to(torch.bfloat16)
+        table = 0.5 * torch.randn(((2 * window - 1) ** 2, heads),
+                                  generator=gen, device=device)
+        do = torch.randn((n, side * side, c), generator=gen,
+                         device=device).to(torch.bfloat16)
+        return qkv, table, do
+
+    def fwd_bwd(fn, qkv, table, do, heads, window, shift, side):
+        q = qkv.detach().requires_grad_(True)
+        t = table.detach().requires_grad_(True)
+        o = fn(q, t, heads, window, shift, (side, side))
+        return (o,) + torch.autograd.grad(o, (q, t), do)
+
+    worst = 0.0
+    for side, c, heads, window, shift in shapes:
+        args = inputs(side, c, heads, window) + (heads, window, shift, side)
+        before = (wa.window_attention.launches,
+                  wa.window_attention.torch_route)
+        got = fwd_bwd(wa.window_attention, *args)
+        torch.cuda.synchronize()
+        launched = (wa.window_attention.launches - before[0],
+                    wa.window_attention.torch_route - before[1])
+        want = fwd_bwd(wa.window_attention_torch, *args)
+        errs = {name: float((a.float() - b.float()).abs().max()
+                            / b.float().abs().max())
+                for name, a, b in zip(("o", "dqkv", "dtable"), got, want)}
+        with torch.no_grad():
+            again = wa.window_attention(args[0], args[1], heads, window,
+                                        shift, (side, side))
+        errs["repeat"] = float((again.float() - got[0].float()).abs().max())
+        del got, want, again, args
+        torch.cuda.empty_cache()
+        label = f"window_attention n={n} {side}x{side} C={c} " \
+                f"heads={heads} window={window} shift={shift}"
+        print(f"{label}: launches (kernel, chain) {launched}", flush=True)
+        check(label, errs, {"o": 2 ** -7, "dqkv": 2 ** -6, "dtable": 1e-2,
+                            "repeat": 1e-30})
+        if launched != (2, 0):
+            raise AssertionError(f"{label}: want one launch each way, none "
+                                 f"to the chain: {launched}")
+        worst = max(worst, errs["o"])
+    n, side, c, heads, window, shift = SWIN_SHAPE
+    args = inputs(side, c, heads, window) + (heads, window, shift, side)
+    torch.cuda.reset_peak_memory_stats()
+    times = ms_in_turns(
+        {"kernel": lambda: fwd_bwd(wa.window_attention, *args),
+         "plain": lambda: fwd_bwd(wa.window_attention_torch, *args)},
+        rounds=4, iters=5, warmup=1)
+    bound = window_attention_bound_ms(n, side, c, window)
+    print(f"window_attention forward+backward n={n} {side}x{side} C={c} "
+          f"heads={heads} window={window} shift={shift}, median (min-max) "
+          "of turns: " + ", ".join(f"{k} {v[0]:.4f} ({v[1]:.4f}-{v[2]:.4f}) "
+                                   "ms" for k, v in times.items())
+          + f", bound {bound[0]:.4f} ms ({bound[1]}), peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    del args
+    torch.cuda.empty_cache()
+    return {"name": "window_attention", "route": "cuda",
+            "source": "deep_kernel_transfer_tpu_torch/csrc/window_attention.cu",
+            "replaces": "none (the port's own trunk)", "launches": None,
+            "max_abs_err": worst, "ms": times["kernel"][0],
+            "plain_ms": times["plain"][0], "bound_ms": bound[0],
+            "bound_by": bound[1], "library_ms": None}
+
+
+def drive_swint_path(device, card: str, steps: int = 3) -> dict:
+    """DKT(SwinT, bncossim) at full width, the benchmark cell
+    swint_cub_train_b8's shapes (D = 768, 840 images at 224 px a step):
+    the fused MLL at that shape against its plain version, then `steps`
+    train steps with the launches counted: one fused MLL a step, and every
+    block's attention on the kernels, one forward and one backward launch
+    a block a step (12 blocks), none to the chain; the first batch's loss
+    against the plain GP route; and one step's peak memory with every
+    attention on the kernels and on the torch chain (the cell times the
+    step). Returns the launches."""
+    from deep_kernel_transfer_tpu_torch.methods import DKT
+    from deep_kernel_transfer_tpu_torch.models import SwinT
+    from deep_kernel_transfer_tpu_torch.ops import window_attention as wa
+    from deep_kernel_transfer_tpu_torch.ops.fused_mll import fused_linear_mll
+
+    window_attention, supports = wa.window_attention, wa.supports
+    check_fused_mll_resnet(device, 768, "SwinT")
+    gen = torch.Generator(device=device).manual_seed(3)
+    shape = (RES_B, MAIN_WAY, MAIN_SHOT + RES_QUERY, RES_PX, RES_PX, 3)
+    batches = [torch.randint(0, 256, shape, generator=gen, device=device,
+                             dtype=torch.uint8) for _ in range(2)]
+
+    def build(fused: bool):
+        return DKT(SwinT(), MAIN_WAY, MAIN_SHOT, kernel_type="bncossim",
+                   feature_dtype="bfloat16", use_fused_mll=fused,
+                   device=device).init(batches[0][0],
+                                       torch.Generator().manual_seed(0))
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build(True)
+    plain = build(False)
+    plain.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        plain_loss = plain.batch_loss_train(batches[0])[0].item()
+    del plain
+    fused_linear_mll.launches = 0
+    window_attention.launches = window_attention.torch_route = 0
+    reset_batchnorm_counts()
+    losses = [model.train_step(batches[i % 2])["loss"] for i in range(steps)]
+    torch.cuda.synchronize()
+    launched = {"fused_linear_mll": fused_linear_mll.launches,
+                "window_attention": window_attention.launches}
+    check_batchnorm_route("SwinT path", steps, 0)
+    losses = [float(v) for v in losses]
+    print(f"SwinT path: {steps} train steps (bncossim, {MAIN_WAY}w"
+          f"{MAIN_SHOT}s{RES_QUERY}q, {RES_PX} px, B={RES_B}, bf16 trunk), "
+          f"losses {losses}, launches {launched}, window_attention torch "
+          f"route {window_attention.torch_route}", flush=True)
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite SwinT loss: {losses}")
+    if launched != {"fused_linear_mll": steps,
+                    "window_attention": 2 * 12 * steps} or \
+            window_attention.torch_route:
+        raise AssertionError(f"SwinT launches {launched}, torch route "
+                             f"{window_attention.torch_route}")
+    rel = abs(losses[0] - plain_loss) / abs(plain_loss)
+    print(f"SwinT step 1 loss: fused route {losses[0]!r}, plain route "
+          f"{plain_loss!r}, relative difference {rel:.3e}", flush=True)
+    if rel >= 1e-4:
+        raise AssertionError("SwinT: fused route disagrees with plain")
+    # one step's peak on each route: the chain keeps the [windows, heads,
+    # 49, 49] scores (stage 1's are 0.77 GB in bf16 a block), the kernels none
+    peaks = {}
+    for route in ("kernel", "chain"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        if route == "chain":
+            wa.supports = lambda *a: False
+        try:
+            model.train_step(batches[0])
+            torch.cuda.synchronize()
+        finally:
+            wa.supports = supports
+        peaks[route] = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"SwinT train step peak: kernels {peaks['kernel']:.3f} GiB, torch "
+          f"chain {peaks['chain']:.3f} GiB [{card}]", flush=True)
+    del model, batches
+    torch.cuda.empty_cache()
+    return launched
+
+
 # -- the comparison methods through the CLIs ----------------------------------
 
 ZOO_METHODS = ("protonet", "matchingnet", "relationnet", "relationnet_softmax",
@@ -3432,7 +3644,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     built = build.build_all(["fused_mll", "blocked_cholesky", "hbm_cholesky",
-                             "episodic_batchnorm"])
+                             "episodic_batchnorm", "window_attention"])
     print(f"built {', '.join(built)} in {time.perf_counter() - t0:.1f} s",
           flush=True)
     for name, (_, log) in built.items():
@@ -3463,6 +3675,8 @@ def main() -> int:
     kernels["episodic_batchnorm_eval_pool"] = \
         check_episodic_batchnorm_eval_pool(device)
     torch.cuda.empty_cache()
+    kernels["window_attention"] = check_window_attention(device)
+    torch.cuda.empty_cache()
 
     # 5. the main paths: DKT meta-training, the GP memory regime, the CLIs,
     # the test-time heads on the digits, ResNet10, ResNet50, the parallel
@@ -3476,6 +3690,7 @@ def main() -> int:
              lambda: drive_heads_path(device, card),
              lambda: drive_resnet_path(device, card),
              lambda: drive_resnet50_path(device, card),
+             lambda: drive_swint_path(device, card),
              lambda: drive_parallel_path(device, card),
              lambda: drive_studies_path(device, card, digits.name),
              lambda: drive_laplace_probe_path(device, card, digits.name)]

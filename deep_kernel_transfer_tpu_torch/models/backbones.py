@@ -6,7 +6,10 @@ the Conv4/Conv6 trunks with their no-pool "NP" and single-channel "S"
 forms, `SimpleBlock`, `BottleneckBlock`, `ResNet` 10-101, the regression
 trunks `Conv3` and `MLP2`, `DistLinear`, `model_dict`, `feat_dims`,
 `np_feat_shapes`), which rebuilds reference backbone.py:13-402 and the
-sines feature net (reference sines/train_DKT.py:113-124).
+sines feature net (reference sines/train_DKT.py:113-124). The port adds a
+trunk of its own that neither package had: `SwinTransformer` (Swin-T as
+`SwinT`), whose activations are tokens [N, T, C] and whose windowed
+attention runs in ops/window_attention.py.
 
 Inputs keep the JAX layout, images [N, H, W, C] (uint8 or already
 normalised float); inside the trunk activations are NCHW. The flattened
@@ -17,8 +20,10 @@ return maps [N, C, H, W].
 Submodules carry the reference's state_dict names: `trunk.{i}.C` (conv)
 and `trunk.{i}.BN` in the Conv trunks; `trunk.0` (stem conv), `trunk.1`
 (its BatchNorm) and `trunk.{4+j}.{C1,BN1,C2,BN2,C3,BN3,shortcut,
-BNshortcut}` in the ResNets; `trunk.bn_out` once methods/dkt.py adds the
-bncossim head; `layer{1,2,3}` in Conv3 and `layer{1,2}` in MLP2.
+BNshortcut}` in the ResNets; `trunk.{i}` (the patch embedding, each
+block, each patch merging, the final norm) in SwinTransformer;
+`trunk.bn_out` once methods/dkt.py adds the bncossim head; `layer{1,2,3}`
+in Conv3 and `layer{1,2}` in MLP2.
 
 Every layer takes (x, train, ep_groups, stats):
   * train=True normalises by batch statistics and, when `stats` is a dict,
@@ -41,6 +46,7 @@ import torch.nn.functional as F
 from .._device import constant
 from ..gp.kernels import full_f32
 from ..ops import episodic_batchnorm as ebn
+from ..ops.window_attention import window_attention
 from ..utils.profiling import annotate
 
 # ImageNet statistics (reference data/datamgr.py:15)
@@ -379,6 +385,194 @@ class ResNet(Trunk):
         return c if self.flatten else c * h * w
 
 
+class Linear(nn.Linear):
+    """nn.Linear over the last dim; the weights are cast to the input's
+    dtype."""
+
+    def forward(self, x):
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), bias)
+
+
+class LayerNorm(nn.LayerNorm):
+    """nn.LayerNorm over the last dim, eps 1e-5; the weights are cast to
+    the input's dtype (ATen takes a bf16 input's statistics in f32)."""
+
+    def forward(self, x):
+        return F.layer_norm(x, self.normalized_shape,
+                            self.weight.to(x.dtype), self.bias.to(x.dtype),
+                            self.eps)
+
+
+class PatchEmbed(nn.Module):
+    """Swin's patch embedding: a patch x patch convolution of stride patch
+    to `dim` channels, then LayerNorm over the tokens [N, h w, dim] in
+    row-major order of the h x w map."""
+
+    def __init__(self, dim: int, patch: int, resolution: int):
+        super().__init__()
+        self.proj = Conv2d(3, dim, patch, stride=patch)
+        self.norm = LayerNorm(dim)
+        self.resolution = resolution
+
+    def forward(self, x, train=True, ep_groups=1, stats=None):
+        x = self.proj(x)
+        if x.shape[-2:] != (self.resolution, self.resolution):
+            raise ValueError(f"the trunk was built for a {self.resolution} x "
+                             f"{self.resolution} token map; the images give "
+                             f"{tuple(x.shape[-2:])}")
+        return self.norm(x.flatten(2).transpose(1, 2))
+
+
+class WindowAttention(nn.Module):
+    """Multi-head self-attention within window x window windows of the
+    resolution x resolution map cyclically shifted by `shift`, with a
+    learned relative-position bias table (Swin's `attn`): the qkv product,
+    ops/window_attention.py (the kernels on the card), the output
+    projection."""
+
+    def __init__(self, dim: int, heads: int, resolution: int, window: int,
+                 shift: int):
+        super().__init__()
+        self.heads, self.window, self.shift = heads, window, shift
+        self.resolution = resolution
+        self.qkv = Linear(dim, 3 * dim)
+        self.proj = Linear(dim, dim)
+        self.relative_position_bias_table = nn.Parameter(
+            torch.zeros((2 * window - 1) ** 2, heads))
+
+    def forward(self, x):
+        o = window_attention(
+            self.qkv(x), self.relative_position_bias_table, self.heads,
+            self.window, self.shift, (self.resolution, self.resolution))
+        return self.proj(o)
+
+
+class Mlp(nn.Module):
+    """Linear to `hidden`, exact GELU, Linear back."""
+
+    def __init__(self, dim: int, hidden: int):
+        super().__init__()
+        self.fc1 = Linear(dim, hidden)
+        self.fc2 = Linear(hidden, dim)
+
+    def forward(self, x):
+        return self.fc2(F.gelu(self.fc1(x)))
+
+
+class SwinBlock(nn.Module):
+    """A Swin Transformer block on tokens [N, T, C]: x + attn(norm1(x)),
+    then x + mlp(norm2(x)); no BatchNorm, so `train`, `ep_groups` and
+    `stats` change nothing."""
+
+    def __init__(self, dim: int, heads: int, resolution: int, window: int,
+                 shift: int, mlp_ratio: int):
+        super().__init__()
+        self.norm1 = LayerNorm(dim)
+        self.attn = WindowAttention(dim, heads, resolution, window, shift)
+        self.norm2 = LayerNorm(dim)
+        self.mlp = Mlp(dim, mlp_ratio * dim)
+
+    def forward(self, x, train=True, ep_groups=1, stats=None):
+        with annotate("block"):
+            with annotate("attention"):
+                h = self.attn(self.norm1(x))
+            x = x + h
+            return x + self.mlp(self.norm2(x))
+
+
+class PatchMerging(nn.Module):
+    """Swin's patch merging: each 2x2 neighbourhood's tokens concatenated
+    (rows 0::2 and 1::2 of column 0::2, then of column 1::2), LayerNorm over
+    the 4C channels, a linear map to 2C without bias."""
+
+    def __init__(self, dim: int, resolution: int):
+        super().__init__()
+        self.resolution = resolution
+        self.norm = LayerNorm(4 * dim)
+        self.reduction = Linear(4 * dim, 2 * dim, bias=False)
+
+    def forward(self, x, train=True, ep_groups=1, stats=None):
+        with annotate("merge"):
+            n, _, c = x.shape
+            x = x.view(n, self.resolution, self.resolution, c)
+            x = torch.cat([x[:, 0::2, 0::2], x[:, 1::2, 0::2],
+                           x[:, 0::2, 1::2], x[:, 1::2, 1::2]], dim=-1)
+            return self.reduction(self.norm(x.view(n, -1, 4 * c)))
+
+
+class TokenMean(nn.Module):
+    """The final LayerNorm, then the mean over the tokens: [N, T, C] ->
+    [N, C]."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.norm = LayerNorm(dim)
+
+    def forward(self, x, train=True, ep_groups=1, stats=None):
+        return self.norm(x).mean(dim=1)
+
+
+class SwinTransformer(Trunk):
+    """Swin Transformer (Liu et al., arXiv:2103.14030) for img_size x
+    img_size inputs: a patch x patch embedding to `dim` channels (trunk.0),
+    then for each stage `depth` blocks with `heads` heads of width dim /
+    heads in window x window windows, every second block's windows shifted
+    by window // 2 (a stage whose map is no larger than a window takes one
+    unshifted window of the whole map), and a patch merging between
+    stages that halves the map and doubles the width; last the final
+    LayerNorm and the mean over the tokens (trunk.{last}, D = the last
+    width). The trunk's list runs these in order: trunk.{i} is the
+    embedding, a block, a merging or the final norm. Stochastic depth and
+    dropout are left out (rate 0). Parameters carry Swin's names within a
+    layer (norm1, attn.qkv, attn.proj, attn.relative_position_bias_table,
+    norm2, mlp.fc1, mlp.fc2; norm, reduction); the init is the benchmark
+    configuration's weight laws: the embedding's convolution N(0, 2 / (k k
+    out)), linear weights and the bias tables N(0, 0.02^2), zero biases,
+    unit LayerNorms."""
+
+    def __init__(self, img_size: int = 224, patch: int = 4, dim: int = 96,
+                 depths=(2, 2, 6, 2), heads=(3, 6, 12, 24), window: int = 7,
+                 mlp_ratio: int = 4):
+        super().__init__()
+        res = img_size // patch
+        layers = [PatchEmbed(dim, patch, res)]
+        for i, (depth, nh) in enumerate(zip(depths, heads)):
+            m = min(window, res)
+            shift = 0 if res <= window else window // 2
+            for j in range(depth):
+                layers.append(SwinBlock(dim, nh, res, m, shift if j % 2 else 0,
+                                        mlp_ratio))
+            if i < len(depths) - 1:
+                layers.append(PatchMerging(dim, res))
+                res, dim = res // 2, 2 * dim
+        layers.append(TokenMean(dim))
+        self.trunk = nn.ModuleList(layers)
+        self.dim = dim
+        self.reset_parameters()
+
+    def reset_parameters(self, generator=None) -> None:
+        super().reset_parameters(generator)
+        device = None if generator is None else generator.device
+        with torch.no_grad():
+            for m in self.modules():
+                if isinstance(m, nn.Linear):
+                    m.weight.copy_(0.02 * torch.randn(
+                        m.weight.shape, generator=generator, device=device))
+                    if m.bias is not None:
+                        m.bias.zero_()
+                elif isinstance(m, nn.LayerNorm):
+                    m.weight.fill_(1.0)
+                    m.bias.zero_()
+                elif isinstance(m, WindowAttention):
+                    t = m.relative_position_bias_table
+                    t.copy_(0.02 * torch.randn(t.shape, generator=generator,
+                                               device=device))
+
+    def out_dim(self, height: int, width: int) -> int:
+        return self.dim
+
+
 class DistLinear(nn.Module):
     """Weight-normalised cosine classifier head of Baseline++ (reference
     backbone.py:22-44; JAX backbones.py:403-429): scores = s·cos(x, w_c),
@@ -451,6 +645,12 @@ def ResNet50(flatten: bool = True) -> ResNet:
 def ResNet101(flatten: bool = True) -> ResNet:
     return ResNet(BottleneckBlock, [3, 4, 23, 3], [256, 512, 1024, 2048],
                   flatten)
+
+
+def SwinT() -> SwinTransformer:
+    """Swin-T (arXiv:2103.14030, Table 1): C = 96, blocks (2, 2, 6, 2),
+    heads (3, 6, 12, 24), 7x7 windows, 224 px."""
+    return SwinTransformer()
 
 
 class Conv3(nn.Module):
@@ -530,13 +730,14 @@ def trunk_features(trunk: nn.Module, x: torch.Tensor) -> torch.Tensor:
 
 model_dict = dict(Conv4=Conv4, Conv4S=Conv4S, Conv6=Conv6,
                   ResNet10=ResNet10, ResNet18=ResNet18, ResNet34=ResNet34,
-                  ResNet50=ResNet50, ResNet101=ResNet101, Conv3=Conv3,
-                  MLP2=MLP2)
+                  ResNet50=ResNet50, ResNet101=ResNet101, SwinT=SwinT,
+                  Conv3=Conv3, MLP2=MLP2)
 
-# width of the flat features (reference backbone.py:264,304,368)
+# width of the flat features (reference backbone.py:264,304,368; SwinT
+# the port's own)
 feat_dims = {"Conv4": 1600, "Conv4S": 64, "Conv6": 1600, "ResNet10": 512,
              "ResNet18": 512, "ResNet34": 512, "ResNet50": 2048,
-             "ResNet101": 2048, "Conv3": 2916, "MLP2": 40}
+             "ResNet101": 2048, "SwinT": 768, "Conv3": 2916, "MLP2": 40}
 
 # the NP trunks' maps, (C, H, W) in the port's NCHW layout (the JAX
 # package's np_feat_shapes hold the same maps as (H, W, C))

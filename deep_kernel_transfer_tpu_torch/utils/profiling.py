@@ -14,8 +14,13 @@ The port's spans sit at its layer boundaries, nested as listed:
       dkt.forward    the loss's forward (method.batch_loss_train)
         dkt.trunk      methods/base.py::apply_trunk (train and eval mode)
           dkt.block      models/backbones.py::SimpleBlock.forward and
-                         BottleneckBlock.forward, once a residual block
+                         BottleneckBlock.forward, once a residual block;
+                         SwinBlock.forward, once a Swin block
             dkt.residual   the block's shortcut branch, the add and the ReLU
+            dkt.attention  a Swin block's LayerNorm1, qkv product, window
+                           attention (ops/window_attention.py) and output
+                           projection
+          dkt.merge      models/backbones.py::PatchMerging.forward
           dkt.batchnorm  models/backbones.py::EpisodicBatchNorm.forward
                          (inside dkt.block and dkt.residual where a block
                          holds it)

@@ -32,3 +32,8 @@ os.environ["DKT_JIT_CACHE"] = _cache_dir
 jax.config.update("jax_compilation_cache_dir", _cache_dir)
 jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
 jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "chip: needs an NVIDIA card (skips without one)")

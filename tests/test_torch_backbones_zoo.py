@@ -168,8 +168,10 @@ def test_distlinear_matches_jax():
 
 
 def test_model_dict_and_shapes():
-    assert set(tbb.model_dict) == set(jbb.model_dict)
-    assert tbb.feat_dims == jbb.feat_dims
+    # SwinT is the port's own trunk, which the JAX package does not have
+    assert set(tbb.model_dict) - {"SwinT"} == set(jbb.model_dict)
+    assert {k: v for k, v in tbb.feat_dims.items() if k != "SwinT"} == \
+        jbb.feat_dims
     for name, dim in tbb.feat_dims.items():
         size = {"Conv4S": 28, "Conv3": 100}.get(
             name, 84 if "Conv" in name else 224)

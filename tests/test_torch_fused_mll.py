@@ -26,7 +26,9 @@ from deep_kernel_transfer_tpu_torch.ops import fused_mll as tfm
 from torch_test_threads import one_thread  # noqa: F401
 
 NOISE = 0.1
-SHAPES = [(30, 96), (100, 256), (128, 160)]  # (N, D), B=3 episodes, W=5 ways
+# (N, D), B=3 episodes, W=5 ways; (105, 768): Swin-T's features at the
+# benchmark's 5w5s16q episodes
+SHAPES = [(30, 96), (100, 256), (128, 160), (105, 768)]
 
 
 @pytest.fixture
